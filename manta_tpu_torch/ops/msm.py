@@ -1,0 +1,360 @@
+"""Pippenger multi-scalar multiplication on the GPU (PyTorch), limb backend.
+
+Port of the non-fused path of `manta_tpu/ops/msm.py`:
+
+1. **Windows**: c-bit windows (c <= 16); signed recoding halves the bucket
+   count and trims the window count to ceil(bits/c).
+2. **Bucket accumulation** — sequential-column segmented reduce, for all
+   windows at once (the JAX package's non-fused path loops over windows;
+   the sums are the same, the launches 1/W as many): one stable `torch.sort`
+   of each window's digits; lane j of a window owns the contiguous sorted
+   chunk [jK, (j+1)K) and a Python loop of K mixed additions walks every
+   window's lanes together, the accumulator restarting at digit boundaries.
+   Completed runs land in their bucket; runs that span chunks leave trailing
+   partials that one segmented scan folds into a second bucket batch.
+3. **Bucket reduction**: sum_b b·S_b via b = 2^c2·h + l — row and column
+   sums of the (2^c1, 2^c2) bucket matrix by pairwise halving, then two small
+   weighted sums (suffix scans), batched over all windows.
+4. **Window combine**: Horner over windows (c doublings per window).
+
+Every field operation is one launch of the field kernel on a CUDA tensor
+(`ops/kernels/field_kernels.py`). The fused column/fold kernels and GLV are
+later slices of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from manta_tpu_torch import fields
+from manta_tpu_torch.ops import curve as C
+from manta_tpu_torch.ops import scan as S
+from manta_tpu_torch.ops.curve import JacobianPoint
+
+DEFAULT_WINDOW_BITS = 13
+DEFAULT_COLUMN_STEPS = 128
+
+_BIG = torch.iinfo(torch.int64).max
+
+
+def _map(pt: JacobianPoint, fn) -> JacobianPoint:
+    return JacobianPoint(fn(pt.x), fn(pt.y), fn(pt.z))
+
+
+def window_digits(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:
+    """(S_L, N) 16-bit limbs -> (W, N) int64 c-bit window digits, little-endian.
+
+    Window w covers scalar bits [w*c, (w+1)*c); a digit may straddle two limbs."""
+    if not 1 <= window_bits <= fields.LIMB_BITS:
+        raise ValueError(f"window_bits must be in 1..{fields.LIMB_BITS}, got {window_bits}")
+    sc = scalars.to(torch.int64)
+    num_limbs = sc.shape[0]
+    total_bits = num_limbs * fields.LIMB_BITS
+    num_windows = -(-total_bits // window_bits)
+    mask = (1 << window_bits) - 1
+    rows = []
+    for w in range(num_windows):
+        i, sh = divmod(w * window_bits, fields.LIMB_BITS)
+        d = sc[i] >> sh
+        if sh + window_bits > fields.LIMB_BITS and i + 1 < num_limbs:
+            d = d | (sc[i + 1] << (fields.LIMB_BITS - sh))
+        rows.append(d & mask)
+    return torch.stack(rows)
+
+
+def window_digits_signed(scalars: torch.Tensor, window_bits: int, scalar_bits: int = 0):
+    """Signed window recoding: (|digit|, negate, final carry) per window.
+
+    Digits lie in [-(2^(c-1)-1), 2^(c-1)]: a raw digit u > 2^(c-1) becomes
+    u - 2^c with a carry into the next window. With `scalar_bits` set, the
+    windows above ceil((bits+1)/c) (all zero) are trimmed."""
+    raw = window_digits(scalars, window_bits)
+    if scalar_bits:
+        num_windows = -(-(scalar_bits + 1) // window_bits)
+        if num_windows > raw.shape[0]:
+            raise ValueError(f"scalar_bits {scalar_bits} exceeds the scalars' limbs")
+        raw = raw[:num_windows]
+    half = 1 << (window_bits - 1)
+    full = 1 << window_bits
+    carry = torch.zeros_like(raw[0])
+    digits, negs = [], []
+    for u in raw:
+        u2 = u + carry
+        neg = u2 > half
+        digits.append(torch.where(neg, full - u2, u2))
+        negs.append(neg)
+        carry = neg.to(raw.dtype)
+    return torch.stack(digits), torch.stack(negs), carry
+
+
+def _sorted_layout(digits: torch.Tensor, steps: int):
+    """Sort each window's digits; return (perm, d_t, head, end) in the
+    chunk-transposed layout: perm (W, K, R) and d_t/head/end (K, W, R) with
+    element [k, w, j] = sorted_w[j*K + k]."""
+    num_windows, n = digits.shape
+    lanes = n // steps
+    d_sorted, order = torch.sort(digits, dim=-1, stable=True)
+    perm = order.reshape(num_windows, lanes, steps).transpose(1, 2)
+    d_t = d_sorted.reshape(num_windows, lanes, steps).permute(2, 0, 1)
+    big = torch.full((1, num_windows, 1), _BIG, dtype=d_t.dtype, device=d_t.device)
+    prev = torch.cat([big.expand(1, num_windows, lanes), d_t[:-1]])
+    head = d_t != prev  # run restarts (k == 0 or digit change)
+    next_last = torch.cat([d_t[0, :, 1:], big[0]], dim=-1)
+    nxt = torch.cat([d_t[1:], next_last[None]])
+    end = d_t != nxt  # true segment ends in each window's sorted order
+    return perm, d_t, head, end
+
+
+def _bucket_template(cops: C.CurveOps, acc: JacobianPoint, num_buckets: int):
+    """Infinity buckets shaped like the (*E, W, R) accumulator, R -> buckets."""
+
+    def tmpl(a):
+        return torch.zeros((*a.shape[:-1], num_buckets), dtype=a.dtype, device=a.device)
+
+    return cops.infinity_like(_map(acc, tmpl))
+
+
+class _BucketStore:
+    """(*E, W, num_buckets) buckets plus one spare slot per lane and window.
+
+    Writes aimed at the spare slots are the dropped writes of the JAX
+    package's `.at[idx].set(mode="drop")`; `buckets()` slices them off."""
+
+    def __init__(self, binf: JacobianPoint, lanes: int):
+        nb = binf.x.shape[-1]
+        self.num_buckets, self.width = nb, nb + lanes
+        num_windows = binf.x.shape[-2]
+        dev = binf.x.device
+        self.base = torch.arange(num_windows, device=dev)[:, None] * self.width
+        self.spare = nb + torch.arange(lanes, device=dev)
+        self.flat = _map(
+            binf,
+            lambda a: torch.cat([a, a[..., :1].expand(*a.shape[:-1], lanes)], -1).reshape(
+                *a.shape[:-2], num_windows * self.width
+            ),
+        )
+
+    def put(self, keep: torch.Tensor, key: torch.Tensor, val: JacobianPoint) -> None:
+        """Bucket key[w, j] of window w takes val[..., w, j] where `keep`."""
+        idx = (torch.where(keep, key, self.spare) + self.base).reshape(-1)
+        for store, v in zip(self.flat, val):
+            store.index_copy_(store.ndim - 1, idx, v.reshape(*v.shape[:-2], -1))
+
+    def buckets(self) -> JacobianPoint:
+        nw = self.base.shape[0]
+        return _map(
+            self.flat,
+            lambda a: a.reshape(*a.shape[:-1], nw, self.width)[..., : self.num_buckets],
+        )
+
+
+def _fold_partials(
+    cops: C.CurveOps,
+    acc: JacobianPoint,
+    d_t: torch.Tensor,
+    binf: JacobianPoint,
+    num_buckets: int,
+) -> JacobianPoint:
+    """Fold cross-chunk trailing partials into a second bucket batch.
+
+    Chunk j's last run continues into chunk j+1 iff the digit matches across
+    the boundary; equal-key (adjacent) partials fold with one segmented scan
+    — run over all windows at once, keys made unique per window so that no
+    segment crosses a window — and the group totals land at their buckets."""
+    o = cops.ops
+    num_windows, lanes = d_t.shape[1:]
+    dev = d_t.device
+    last_d, first_d = d_t[-1], d_t[0]
+    cont = torch.cat(
+        [last_d[:, :-1] == first_d[:, 1:], torch.zeros((num_windows, 1), dtype=torch.bool, device=dev)],
+        dim=-1,
+    )
+    inf_r = cops.infinity_like(acc)
+    val = JacobianPoint(
+        o.select(cont, acc.x, inf_r.x),
+        o.select(cont, acc.y, inf_r.y),
+        o.select(cont, acc.z, inf_r.z),
+    )
+    key = torch.where(cont, last_d, torch.full_like(last_d, num_buckets))
+    key_flat = (key + torch.arange(num_windows, device=dev)[:, None] * (num_buckets + 1)).reshape(-1)
+    change = key_flat[1:] != key_flat[:-1]
+    true1 = torch.ones((1,), dtype=torch.bool, device=dev)
+    scanned = S.seg_scan(
+        cops, _map(val, lambda a: a.reshape(*a.shape[:-2], -1)), torch.cat([true1, change])
+    )
+    ends = torch.cat([change, true1]).reshape(num_windows, lanes)
+    store = _BucketStore(binf, lanes)
+    store.put(ends, key, _map(scanned, lambda a: a.reshape(*a.shape[:-1], num_windows, lanes)))
+    return store.buckets()
+
+
+def _bucket_sums(
+    cops: C.CurveOps,
+    digits: torch.Tensor,
+    points: JacobianPoint,
+    num_buckets: int,
+    column_steps: int,
+    negs=None,
+) -> JacobianPoint:
+    """S[w, b] = sum of the points whose window-w digit is b, all windows at
+    once: (*E, W, num_buckets), empty buckets at infinity.
+
+    digits: (W, n) with n = R*K (pre-padded); points: affine Jacobian batch
+    (*E, n), Z in {0, 1}; negs: (W, n) bool, lanes whose point enters window
+    w negated (signed digits), or None."""
+    num_windows, n = digits.shape
+    steps = min(column_steps, n)
+    lanes = n // steps
+    assert lanes * steps == n
+    o = cops.ops
+    perm, d_t, head, end = _sorted_layout(digits, steps)
+
+    def gather(a):  # (*E, n) -> (K, *E, W, R), contiguous per step
+        return a[..., perm].movedim(-2, 0).contiguous()
+
+    px, pz = gather(points.x), gather(points.z)
+    py = gather(points.y)
+    if negs is not None:
+        neg_t = negs.gather(-1, perm.reshape(num_windows, -1)).reshape(perm.shape)
+        neg_t = neg_t.permute(1, 0, 2)  # (K, W, R)
+        neg_t = neg_t.reshape(steps, *(1,) * (py.ndim - 3), num_windows, lanes)
+        py = torch.where(neg_t, gather(o.neg(points.y)), py)
+    acc = cops.infinity_like(JacobianPoint(px[0], py[0], pz[0]))
+    binf = _bucket_template(cops, acc, num_buckets)
+    store = _BucketStore(binf, lanes)
+    for k in range(steps):
+        p_k = JacobianPoint(px[k], py[k], pz[k])
+        added = cops.madd(acc, p_k)
+        acc = JacobianPoint(
+            o.select(head[k], p_k.x, added.x),
+            o.select(head[k], p_k.y, added.y),
+            o.select(head[k], p_k.z, added.z),
+        )
+        # completed runs land in their bucket; the others in the spare slots
+        store.put(end[k], d_t[k], acc)
+    buckets_b = _fold_partials(cops, acc, d_t, binf, num_buckets)
+    return cops.add(store.buckets(), buckets_b)
+
+
+def _tree_reduce_last(cops: C.CurveOps, pts: JacobianPoint) -> JacobianPoint:
+    """Pairwise-halving sum over the (power-of-two) trailing axis -> length 1.
+
+    Lane 0 gets the same additions, in the same order, as the JAX package's
+    rolled halving (`_tree_reduce_rolled`)."""
+    n = pts.x.shape[-1]
+    assert n & (n - 1) == 0
+    while n > 1:
+        half = n // 2
+        lo = _map(pts, lambda a: a[..., :half])
+        hi = _map(pts, lambda a: a[..., half:])
+        pts = cops.add(lo, hi)
+        n = half
+    return pts
+
+
+def _weighted_linear(cops: C.CurveOps, buckets: JacobianPoint) -> JacobianPoint:
+    """sum_{b>=1} b*S_b = sum_{b>=1} suffix[b], suffix[b] = sum_{b'>=b} S_b'."""
+    lane0 = torch.zeros((buckets.x.shape[-1],), dtype=torch.bool, device=buckets.x.device)
+    lane0[0] = True
+    inf = cops.infinity_like(buckets)
+    o = cops.ops
+    b0 = JacobianPoint(
+        o.select(lane0, inf.x, buckets.x),
+        o.select(lane0, inf.y, buckets.y),
+        o.select(lane0, inf.z, buckets.z),
+    )
+    suffix = S.suffix_scan(cops, b0)
+    # suffix[0] duplicates suffix[1]; mask it out, then sum all lanes
+    masked = JacobianPoint(
+        o.select(lane0, inf.x, suffix.x),
+        o.select(lane0, inf.y, suffix.y),
+        o.select(lane0, inf.z, suffix.z),
+    )
+    return S.total_sum(cops, masked)
+
+
+def _weighted_reduce(cops: C.CurveOps, buckets: JacobianPoint, window_bits: int) -> JacobianPoint:
+    """sum_{b>=1} b*S_b over 2^c buckets via b = 2^c2*h + l."""
+    c1 = window_bits // 2
+    c2 = window_bits - c1
+    hi_n, lo_n = 1 << c1, 1 << c2
+    mat = _map(buckets, lambda a: a.reshape(*a.shape[:-1], hi_n, lo_n))
+    row_sums = _map(_tree_reduce_last(cops, mat), lambda a: a[..., 0])  # sum over l
+    mat_t = _map(mat, lambda a: a.transpose(-1, -2))
+    col_sums = _map(_tree_reduce_last(cops, mat_t), lambda a: a[..., 0])  # sum over h
+    w_hi = _weighted_linear(cops, row_sums)  # sum_h h*R_h
+    w_lo = _weighted_linear(cops, col_sums)  # sum_l l*C_l
+    for _ in range(c2):
+        w_hi = cops.double(w_hi)
+    return cops.add(w_hi, w_lo)
+
+
+def _weighted_reduce_signed(
+    cops: C.CurveOps, buckets: JacobianPoint, window_bits: int
+) -> JacobianPoint:
+    """Weighted reduce over 2^(c-1)+1 signed-digit buckets: the split-index
+    identity on [0, 2^(c-1)), plus the top-weight bucket folded in with c-1
+    doublings."""
+    half_bits = window_bits - 1
+    main = _map(buckets, lambda a: a[..., : 1 << half_bits])
+    top = _map(buckets, lambda a: a[..., 1 << half_bits : (1 << half_bits) + 1])
+    acc = _weighted_reduce(cops, main, half_bits)
+    for _ in range(half_bits):
+        top = cops.double(top)
+    return cops.add(acc, top)
+
+
+@torch.inference_mode()
+def msm(
+    cops: C.CurveOps,
+    scalars: torch.Tensor,
+    points: JacobianPoint,
+    window_bits: int = DEFAULT_WINDOW_BITS,
+    column_steps: int = DEFAULT_COLUMN_STEPS,
+    scalar_bits: int = 0,
+    signed: bool = True,
+) -> JacobianPoint:
+    """sum_i scalars[i] * points[i].
+
+    scalars: (S_L, N) canonical (non-Montgomery) 16-bit limbs of the scalar
+    field, on the points' device. points: Jacobian batch of N affine points
+    (Z in {0, 1}, as `encode_points`/`to_affine` give them). Returns a
+    single-lane Jacobian point."""
+    num_buckets = (1 << (window_bits - 1)) + 1 if signed else 1 << window_bits
+    n = points.x.shape[-1]
+    if scalars.shape[-1] != n:
+        raise ValueError(f"scalar lanes ({scalars.shape[-1]}) != point lanes ({n})")
+    steps = min(column_steps, n)
+    n2 = -(-n // steps) * steps
+    if n2 != n:
+        # pad with infinity points, digit 0 (bucket 0 has weight 0)
+        pad = n2 - n
+        scalars = torch.cat([scalars, scalars.new_zeros((scalars.shape[0], pad))], -1)
+        inf = cops.infinity_like(points)
+        points = JacobianPoint(
+            *(torch.cat([a, ia[..., :pad]], -1) for a, ia in zip(points, inf))
+        )
+    if signed:
+        digits, negs, _ = window_digits_signed(scalars, window_bits, scalar_bits)
+    else:
+        digits, negs = window_digits(scalars, window_bits), None
+    num_windows = digits.shape[0]
+    buckets = _bucket_sums(cops, digits, points, num_buckets, steps, negs)
+    if signed:
+        wins = _weighted_reduce_signed(cops, buckets, window_bits)
+    else:
+        wins = _weighted_reduce(cops, buckets, window_bits)  # coords (*E, W, 1)
+
+    # Horner from the most significant window down:
+    # acc = W_last; for w = last-1..0: acc = 2^c * acc + W_w
+    acc = _map(wins, lambda a: a[..., -1, :])
+    for w in range(num_windows - 2, -1, -1):
+        for _ in range(window_bits):
+            acc = cops.double(acc)
+        acc = cops.add(acc, _map(wins, lambda a: a[..., w, :]))
+    return acc
+
+
+def msm_host_oracle(curve, scalars, points):
+    """Slow host-side MSM for tests."""
+    return curve.msm(scalars, points)
