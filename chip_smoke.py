@@ -2,24 +2,39 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit code:
+Phases, in order; any failure ends the run with a non-zero exit code, and no
+phase catches its own failure:
 
 1. record the machine (torch, CUDA, nvcc, the card's name and power limit);
    no CUDA device -> exit 1 before any result is printed;
-2. build the CUDA field kernel from `manta_tpu_torch/csrc/field_kernels.cu`;
-3. hold the kernel's mul / add / sub against their plain PyTorch versions on
+2. build every kernel from `manta_tpu_torch/csrc/` with `nvcc` for sm_90a,
+   all objects at once, and print the compiler's register and spill report;
+3. hold the field kernel's mul / add / sub against their plain versions on
    the card, bit for bit (tolerance 0: exact integer arithmetic), on BN254 Fr
    and Fq and BLS12-381 Fr and Fq at n in {1000, 65536, 826224}, random
    lazy values plus the edge values 0, 1, p-1, p, 2p-1; time kernel and
    plain version at the prover's shapes beside the bound (the kernel's device
    time from a replayed CUDA graph, and its time a call from Python);
-4. a BN254 G1 MSM of 4096 points (window 13) through the port's `msm`,
-   checked against `msm_host_oracle`;
-5. the main path: the production PrivateTransfer prover from
-   `.bench_prover_pt.npz` on the limb backend, two proofs (r, s) = (7, 9) and
-   (2, 3), each verified by the host pairing against `.bench_prover_pt_vk.bin`,
-   with the launch count of every kernel op read around that run;
-6. one JSON line describing each ported kernel, then the card's
+4. hold the point-op (add, madd, double), column and fold kernels against
+   their plain versions, bit for bit, on BN254 G1 and G2 and BLS12-381 G1
+   and G2: point ops over 1000 lanes with the lanes P+P, P+(-P), P+inf,
+   inf+Q and inf+inf; column and fold at K = 16, R = 1024 with random head
+   and qinf masks plus an all-head row and an all-infinity column;
+5. MSMs on the card: BN254 G1 over 65536 points (i+1)·G (window 13, 128
+   column steps: the fold path) and over 4096 points (32 lanes: no fold
+   path) on the fused backend, and 4096 points on the limb backend,
+   each checked against (sum (i+1)·s_i mod r)·G as `bench.py` checks;
+6. the main path: the production PrivateTransfer prover from
+   `.bench_prover_pt.npz` on the backend its meta records (fused), two
+   proofs (r, s) = (7, 9) and (2, 3), each verified by the host pairing
+   against `.bench_prover_pt_vk.bin`, with the launch count of every kernel
+   read around that run; the point kernels' calls of the first proof are
+   recorded, each (kernel, curve, shape) held bit for bit against the same
+   formulas through the limb `CurveOps` on the card on the recorded inputs
+   (and at the shape its `kernels` entry reports, against the plain version
+   too), then timed at that shape beside its bound;
+7. one proof on the limb backend, verified, its launches read around it;
+8. one JSON line describing each ported kernel, then the card's
    `nvidia-smi` line, then the last line {"ok": true, "device": {...}}.
 """
 
@@ -46,6 +61,12 @@ INT32_OPS_PER_S = 67e12
 SEED = 20261017
 KERNEL_SOURCE = "manta_tpu_torch/csrc/field_kernels.cu"
 REPLACES = "manta_tpu/ops/pallas/field_kernels.py:164"
+POINT_SOURCE = "manta_tpu_torch/csrc/point_kernels.cu"
+POINT_REPLACES = {
+    "point": "manta_tpu/ops/pallas/point_kernels.py:501",
+    "columns": "manta_tpu/ops/pallas/point_kernels.py:603",
+    "fold": "manta_tpu/ops/pallas/point_kernels.py:711",
+}
 
 
 def log(msg: str) -> None:
@@ -106,9 +127,9 @@ def record_machine() -> str:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke needs a GPU", file=sys.stderr)
         sys.exit(1)
-    from manta_tpu_torch.ops.kernels import field_kernels as K
+    from manta_tpu_torch.ops.kernels import build as B
 
-    nvcc = run([K._nvcc(), "--version"]).splitlines()
+    nvcc = run([B.nvcc(), "--version"]).splitlines()
     log("nvcc: " + next((ln for ln in nvcc if "release" in ln), nvcc[-1]))
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     log(f"nvidia-smi: {smi}")
@@ -212,87 +233,395 @@ def check_kernels():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: a small MSM
+# phase 2: build
 # ---------------------------------------------------------------------------
 
 
-def check_msm():
+def build_kernels() -> dict:
+    """Build every library not built yet, all objects at once; return the
+    registers and spill bytes of each kernel by curve, from the `-Xptxas -v`
+    report kept beside each library (so a library that an earlier run built
+    reports too)."""
+    import re
+
+    from manta_tpu_torch.ops.kernels import build as B
+    from manta_tpu_torch.ops.kernels import field_kernels as FK
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    libs = [FK.LIBRARY, *PK.LIBRARIES]
+    t0 = time.perf_counter()
+    paths = B.build(libs, verbose=True)
+    log(f"  built {len(paths)} libraries in {time.perf_counter() - t0:.3f} s: "
+        + ", ".join(os.path.relpath(p, ROOT) for p in paths))
+    report = {"field": {}, "point": {}, "columns": {}, "fold": {}}
+    texts = {what: text for lib in libs for what, text in B.reports(lib).items()}
+    if len(texts) != sum(len(lib.units) for lib in libs):
+        raise AssertionError(f"compiler reports missing: have {sorted(texts)}")
+    for what, text in texts.items():
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(a) + int(b) for a, b in
+                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+        row = {"registers": max(regs), "spill_bytes": max(spills, default=0)}
+        if what.startswith("field_kernels"):
+            report["field"] = row
+            continue
+        curve = what.split()[0].removeprefix("point_kernels-")
+        kernel = PK.KERNELS[int(what.rsplit("=", 1)[1])]
+        kind = "point" if kernel in ("add", "madd", "double") else kernel
+        report[kind][f"{curve} {kernel}" if kind == "point" else curve] = row
+    for kind, rows in report.items():
+        log(f"  {kind}: registers / spill bytes {json.dumps(rows)}")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 4: point, column and fold kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+CURVE_NAMES = ("bn254_g1", "bn254_g2", "bls12_381_g1", "bls12_381_g2")
+
+
+def _curve(name):
+    from manta_tpu_torch.utils import hostmath
+
+    return getattr(hostmath, name.upper())
+
+
+def host_points(curve, rng, n, p_inf=0.1):
+    """n points from 8 random multiples of G (repeats give P+P lanes), a share
+    of them at infinity."""
+    r = curve.scalar_field.modulus
+    base = [curve.scalar_mul(int(k) % r or 1, curve.generator) for k in rng.integers(1, 2**62, 8)]
+    return [None if rng.random() < p_inf else base[int(i)] for i in rng.integers(0, 8, n)]
+
+
+def _max_err(got, want) -> int:
+    return max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+
+
+def check_point_kernels() -> dict:
     from manta_tpu_torch.ops import curve as C
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    rng = np.random.default_rng(SEED + 1)
+    max_err = {"point": 0, "columns": 0, "fold": 0}
+
+    def hold(kind, what, got, want):
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        max_err[kind] = max(max_err[kind], err)
+        if err:
+            raise AssertionError(f"{what} kernel != plain: max |diff| {err}")
+
+    for name in CURVE_NAMES:
+        curve = _curve(name)
+        limb = C.curve_ops_for(curve, "limb")
+        ps, qs = host_points(curve, rng, 1000, 0.0), host_points(curve, rng, 1000)
+        ps[3] = ps[4] = None  # P+P, P+(-P), P+inf, inf+Q, inf+inf
+        qs[:5] = [ps[0], curve.neg(ps[1]), None, qs[5], None]
+        pa, qa = limb.encode_points(ps, "cuda"), limb.encode_points(qs, "cuda")
+        p2, q2 = limb.double(pa), limb.double(qa)
+        for which, args in (("add", (p2, q2)), ("add", (pa, pa)), ("madd", (p2, qa)),
+                            ("madd", (pa, pa)), ("double", (p2,))):
+            hold("point", f"{name} {which}", getattr(PK, f"fused_{which}")(curve, *args),
+                 PK.PLAIN[which](curve, *args))
+        K, R = 16, 1024
+        enc = limb.encode_points(host_points(curve, rng, K * R), "cuda")
+        head = torch.from_numpy(rng.random((K, R)) < 0.3).cuda()
+        qinf = torch.from_numpy(rng.random((K, R)) < 0.1).cuda()
+        head[3] = True
+        qinf[:, 5] = True
+
+        def stream(c):  # lane j owns points [j*K, (j+1)*K)
+            return c.reshape(*c.shape[:-1], R, K).movedim(-1, 0).contiguous()
+
+        px, py = stream(enc.x), stream(enc.y)
+        hold("columns", f"{name} column", PK.accumulate_columns(curve, px, py, qinf, head),
+             PK.plain_accumulate_columns(curve, px, py, qinf, head))
+        q = [stream(c) for c in limb.double(enc)]
+        got_a, got_b = PK.fold_columns(curve, *q, head)
+        want_a, want_b = PK.plain_fold_columns(curve, *q, head)
+        hold("fold", f"{name} fold", [*got_a, *got_b], [*want_a, *want_b])
+        log(f"  {name}: point add / madd / double over 1000 lanes, column and fold at "
+            f"K={K}, R={R}: bit-equal to the plain versions")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 5: MSMs
+# ---------------------------------------------------------------------------
+
+
+def multiples_of_g(curve, n):
+    """(i+1)·G for i < n, by repeated addition on the host."""
+    out, acc = [], None
+    for _ in range(n):
+        acc = curve.add(acc, curve.generator)
+        out.append(acc)
+    return out
+
+
+def check_msm(cops, pts, steps, label):
+    """sum s_i·(i+1)·G on the card against (sum (i+1)·s_i mod r)·G."""
     from manta_tpu_torch.ops import field_ops as F
     from manta_tpu_torch.ops import msm as M
+    from manta_tpu_torch.ops.kernels import field_kernels as FK
+
+    curve = cops.curve
+    r = curve.scalar_field.modulus
+    n = len(pts)
+    rng = random.Random(SEED + n)
+    scalars = [rng.randrange(r) for _ in range(n)]
+    sc = F.as_tensor(F.encode_ints(curve.scalar_field, scalars, montgomery=False), "cuda")
+    points = cops.encode_points(pts, "cuda")
+    torch.cuda.synchronize()
+    FK.reset_launches()
+    t0 = time.perf_counter()
+    got = M.msm(cops, sc, points, 13, steps, curve.scalar_field.bits)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    field_launches = dict(FK.LAUNCHES)
+    want = curve.scalar_mul(sum((i + 1) * s for i, s in enumerate(scalars)) % r, curve.generator)
+    if cops.decode_points(got)[0] != want:
+        raise AssertionError(f"{label} disagrees with (sum (i+1)·s_i)·G")
+    log(f"  {label}: {dt:.3f} s, equal to (sum (i+1)·s_i)·G; "
+        f"field-kernel launches in it {field_launches}")
+    return field_launches
+
+
+def check_msms():
+    from manta_tpu_torch.ops import curve as C
     from manta_tpu_torch.utils import hostmath
 
     curve = hostmath.BN254_G1
-    cops = C.curve_ops_for(curve, "limb")
-    n = 4096
-    pts, acc = [], None
-    for _ in range(n):  # (i+1)·G by repeated addition
-        acc = curve.add(acc, curve.generator)
-        pts.append(acc)
-    rng = random.Random(SEED)
-    scalars = [rng.randrange(curve.scalar_field.modulus) for _ in range(n)]
-    sc = F.as_tensor(F.encode_ints(curve.scalar_field, scalars, montgomery=False), "cuda")
-    points = cops.encode_points(pts, "cuda")
-    t0 = time.perf_counter()
-    got = M.msm(cops, sc, points, 13, 128, curve.scalar_field.bits)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    got = cops.decode_points(got)[0]
-    want = M.msm_host_oracle(curve, scalars, pts)
-    if got != want:
-        raise AssertionError("BN254 G1 MSM (n=4096) disagrees with msm_host_oracle")
-    log(f"  BN254 G1 MSM n={n} window 13: {dt:.3f} s, equal to msm_host_oracle")
+    fused, limb = C.curve_ops_for(curve, "fused"), C.curve_ops_for(curve, "limb")
+    pts = multiples_of_g(curve, 65536)
+    glue = check_msm(fused, pts, 128, "BN254 G1 MSM n=65536, fused, fold path")
+    # the curve formulas of the fused MSM are kernels: only its glue (the
+    # negated y coordinates, one negation in the weighted fold) is field ops
+    if sum(glue.values()) > 4:
+        raise AssertionError(f"the fused MSM ran field-kernel launches {glue}")
+    check_msm(fused, pts[:4096], 128, "BN254 G1 MSM n=4096, fused, 32 lanes (no fold path)")
+    check_msm(limb, pts[:4096], 128, "BN254 G1 MSM n=4096, limb")
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the production PrivateTransfer proofs
+# phases 6 and 7: the production PrivateTransfer proofs
 # ---------------------------------------------------------------------------
 
 
-def prove_production():
-    from manta_tpu_torch.models import groth16 as G
+def load_production(backend=None):
     from manta_tpu_torch.models.groth16_device import DeviceProver
-    from manta_tpu_torch.ops.kernels import field_kernels as K
     from manta_tpu_torch.utils import keyio
 
     t0 = time.perf_counter()
     prover = DeviceProver.from_cache(
-        os.path.join(ROOT, ".bench_prover_pt.npz"), backend="limb", device="cuda"
+        os.path.join(ROOT, ".bench_prover_pt.npz"), backend=backend, device="cuda"
     )
     torch.cuda.synchronize()
     with open(os.path.join(ROOT, ".bench_prover_pt_aux.json")) as f:
         aux = json.load(f)
     with open(os.path.join(ROOT, ".bench_prover_pt_vk.bin"), "rb") as f:
         vk = keyio.vk_from_bytes(f.read())
-    assignments = [[int(x) for x in a] for a in aux["assignments"]]
-    publics = [[int(x) for x in p] for p in aux["publics"]]
     log(
-        f"  cache load: {time.perf_counter() - t0:.3f} s (n_ab={prover.n_ab}, "
-        f"n_lh={prover.n_lh}, domain {prover.m}, window {prover.window_bits}, "
-        f"column steps {prover.column_steps})"
+        f"  cache load: {time.perf_counter() - t0:.3f} s (backend {prover.g1.backend}, "
+        f"n_ab={prover.n_ab}, n_lh={prover.n_lh}, domain {prover.m}, window "
+        f"{prover.window_bits}, column steps {prover.column_steps})"
     )
-    K.reset_launches()
-    results = []
-    for idx, (r, s) in ((0, (7, 9)), (1, (2, 3))):
-        timings = {}
-        t0 = time.perf_counter()
-        proof = prover.prove(assignments[idx], r, s, timings=timings)
-        wall = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        ok = G.verify(vk, proof, publics[idx])
-        t_verify = time.perf_counter() - t1
-        if not ok:
-            raise AssertionError(f"proof of assignment {idx} failed to verify")
-        parts = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
-        log(f"  proof {idx} (r={r}, s={s}): {wall:.3f} s [{parts}] s; "
-            f"verified by the host pairing in {t_verify:.3f} s")
-        results.append({"assignment": idx, "wall_s": wall, **timings})
-    launches = dict(K.LAUNCHES)
-    log(f"  kernel launches over the two proofs: {launches}")
-    for which, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path launched no {which} kernel")
-    return launches, results
+    return prover, aux, vk
+
+
+def reset_counts():
+    from manta_tpu_torch.ops.kernels import field_kernels as FK
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    FK.reset_launches()
+    PK.reset_launches()
+
+
+def read_counts() -> dict:
+    from manta_tpu_torch.ops.kernels import field_kernels as FK
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    return {"field": dict(FK.LAUNCHES), "point": dict(PK.LAUNCHES)}
+
+
+def prove_and_verify(prover, aux, vk, idx, r, s):
+    from manta_tpu_torch.models import groth16 as G
+
+    assignment = [int(x) for x in aux["assignments"][idx]]
+    public = [int(x) for x in aux["publics"][idx]]
+    timings = {}
+    t0 = time.perf_counter()
+    proof = prover.prove(assignment, r, s, timings=timings)
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    if not G.verify(vk, proof, public):
+        raise AssertionError(f"proof of assignment {idx} failed to verify")
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+    log(f"  proof {idx} (r={r}, s={s}): {wall:.3f} s [{parts}] s; "
+        f"verified by the host pairing in {time.perf_counter() - t1:.3f} s")
+
+
+class Recorder:
+    """Wraps the point-kernel wrappers so that a run keeps the arguments of
+    the first call of each (kernel, curve, shape): the calls to time."""
+
+    NAMES = ("_point_op", "accumulate_columns", "fold_columns")
+
+    def __init__(self):
+        from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+        self.PK, self.calls, self.saved = PK, {}, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.PK, name)
+            setattr(self.PK, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.PK, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(curve, *args):
+            if name == "_point_op":
+                key = (args[0], curve.name, tuple(args[1].x.shape))
+            else:
+                key = ({"accumulate_columns": "columns", "fold_columns": "fold"}[name],
+                       curve.name, tuple(args[0].shape))
+            self.calls.setdefault(key, (fn, curve, args))
+            return fn(curve, *args)
+
+        return call
+
+
+def prove_production(backend=None, proofs=((0, (7, 9)), (1, (2, 3))), record=False):
+    prover, aux, vk = load_production(backend)
+    recorder = Recorder() if record else None
+    reset_counts()
+    for n, (idx, (r, s)) in enumerate(proofs):
+        if recorder is not None and n == 0:
+            with recorder:
+                prove_and_verify(prover, aux, vk, idx, r, s)
+        else:
+            prove_and_verify(prover, aux, vk, idx, r, s)
+    counts = read_counts()
+    log(f"  kernel launches over the {len(proofs)} proof(s): {json.dumps(counts)}")
+    return counts, recorder
+
+
+# ---------------------------------------------------------------------------
+# timing the point kernels at the shapes the proof gave them
+# ---------------------------------------------------------------------------
+
+# Montgomery products per formula: (base-field products of G1, of G2; an Fq2
+# product is 3 base products, an Fq2 square 2)
+PRODUCTS = {"add": (16, 44), "madd": (11, 29), "double": (7, 16)}
+
+
+def point_bound_ms(kind, curve, args):
+    """Least time of one call: the bytes it must move (each input read once,
+    each output written once) over HBM rate, against its 32-bit
+    multiply-adds (2 operations each: 2·S² + S per Montgomery product, S
+    words; the formulas this run's data needs: no mixed add at a head, no
+    add into A at a head in the fold; the rare doubling lanes of the edge
+    dispatch are not counted) over the int32 ceiling."""
+    words = (curve.field.num_limbs + 1) // 2
+    per_product = 2 * (2 * words * words + words)
+    g = 1 if curve.is_ext else 0
+    if kind in PRODUCTS:  # args: (which, p[, q])
+        size = args[1].x.numel()
+        coords = size * (3 if kind == "double" else 6) + 3 * size
+        lanes = size // (curve.field.num_limbs * (2 if curve.is_ext else 1))
+        products = PRODUCTS[kind][g] * lanes
+    elif kind == "columns":
+        px, _, _, head = args
+        coords = 5 * px.numel() + 2 * head.numel()
+        products = PRODUCTS["madd"][g] * int((~head.bool()).sum())
+    else:
+        qx, _, _, head = args
+        coords = 9 * qx.numel() + head.numel()
+        products = PRODUCTS["add"][g] * (head.numel() + int((~head.bool()).sum()))
+    t_bytes = coords * 4 / HBM_BYTES_PER_S
+    t_ops = products * per_product / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# the shape of each kernel that its `kernels` entry reports, with its plain
+# time: the G1 column of MSM A, the weighted fold's first level, the bucket
+# merge of the G1 MSMs
+MAIN_SHAPES = {
+    "columns": ("columns", "bn254_g1", (128, 16, 10240)),
+    "fold": ("fold", "bn254_g1", (32, 16, 2560)),
+    "point": ("add", "bn254_g1", (16, 20, 4097)),
+}
+
+
+def reference(kind, which, curve, args):
+    """The recorded call through the limb `CurveOps` on the card: the same
+    formulas, one field-kernel launch per field op (field kernel held
+    against its plain version in phase 3)."""
+    from manta_tpu_torch.ops import curve as C
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    if kind == "point":
+        return getattr(C.curve_ops_for(curve, "limb"), which)(*args[1:])
+    limb = {"columns": PK.limb_accumulate_columns, "fold": PK.limb_fold_columns}[kind]
+    return limb(curve, *args)
+
+
+def _coords(out) -> list:
+    """The coordinate tensors of a point, or of the fold's (A, B) pair."""
+    return [c for pt in out for c in pt] if isinstance(out[0], tuple) else list(out)
+
+
+def time_recorded(recorder, max_err) -> dict:
+    """Hold every recorded call of the proof against the limb reference on
+    the card, and at the `MAIN_SHAPES` also against the plain version (the
+    host integers), bit for bit, on the recorded inputs; raise on any
+    difference, and keep the largest in `max_err`. Then time each call."""
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    plain = {"columns": PK.plain_accumulate_columns, "fold": PK.plain_fold_columns}
+    rows = {"point": [], "columns": [], "fold": []}
+    for (which, curve_name, shape), (fn, curve, args) in sorted(
+        recorder.calls.items(), key=lambda kv: kv[0]
+    ):
+        kind = "point" if which in PRODUCTS else which
+        got = _coords(fn(curve, *args))
+        err = _max_err(got, _coords(reference(kind, which, curve, args)))
+        row = {"op": which, "curve": curve_name, "shape": list(shape)}
+        main = MAIN_SHAPES[kind] == (which, curve_name, shape)
+        if main:
+            t0 = time.perf_counter()
+            want = PK.PLAIN[which](curve, *args[1:]) if kind == "point" else plain[kind](curve, *args)
+            torch.cuda.synchronize()
+            row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            row["main"] = True
+            err = max(err, _max_err(got, _coords(want)))
+        row["max_abs_err"] = err
+        max_err[kind] = max(max_err[kind], err)
+        if err:
+            raise AssertionError(f"{which} {curve_name} {tuple(shape)}: kernel != "
+                                 f"{'plain version' if main else 'limb reference'}: "
+                                 f"max |diff| {err}")
+        once = graph_ms(lambda: fn(curve, *args), 1)
+        reps = max(1, min(200, int(20 / max(once, 1e-3))))
+        row["ms"] = graph_ms(lambda: fn(curve, *args), reps)
+        row["call_ms"] = cuda_ms(lambda: fn(curve, *args), reps)
+        row["bound_ms"], row["bound_by"] = point_bound_ms(which, curve, args)
+        rows[kind].append(row)
+        checked = "the limb reference" + (" and the plain version" if main else "")
+        log(f"  {which} {curve_name} {tuple(shape)}: bit-equal to {checked}; "
+            f"{row['ms']:.6f} ms on the device, {row['call_ms']:.6f} ms a call, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']})"
+            + (f", plain {row['plain_ms']:.3f} ms" if main else ""))
+    for kind, (which, curve_name, shape) in MAIN_SHAPES.items():
+        if not any(r.get("main") for r in rows[kind]):
+            raise AssertionError(f"the proof made no {which} call on {curve_name} at {shape}")
+    return rows
 
 
 def main() -> int:
@@ -300,20 +629,32 @@ def main() -> int:
     smi = record_machine()
 
     log("== phase 2: build")
-    from manta_tpu_torch.ops.kernels import field_kernels as K
+    build = build_kernels()
 
-    t0 = time.perf_counter()
-    lib = K.build(verbose=True)
-    log(f"  built {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.3f} s")
-
-    log("== phase 3: kernel vs plain version")
+    log("== phase 3: field kernel vs plain version")
     max_err, timings = check_kernels()
 
-    log("== phase 4: MSM")
-    check_msm()
+    log("== phase 4: point, column and fold kernels vs plain versions")
+    point_err = check_point_kernels()
 
-    log("== phase 5: production PrivateTransfer proofs (limb backend)")
-    launches, _ = prove_production()
+    log("== phase 5: MSMs")
+    check_msms()
+
+    log("== phase 6: production PrivateTransfer proofs (the meta's backend)")
+    counts, recorder = prove_production(record=True)
+    for group, ops in (("field", ("mul", "add", "sub")), ("point", ("add", "double", "columns", "fold"))):
+        for op in ops:
+            if counts[group][op] <= 0:
+                raise AssertionError(f"the main path launched no {group} {op} kernel")
+    log("  the point kernels at the shapes of the first proof: checked, then timed")
+    point_rows = time_recorded(recorder, point_err)
+    del recorder
+
+    log("== phase 7: production proof (limb backend)")
+    limb_counts, _ = prove_production("limb", proofs=((0, (7, 9)),))
+    for op, count in limb_counts["field"].items():
+        if count <= 0:
+            raise AssertionError(f"the limb path launched no {op} kernel")
 
     names = {"mul": "field_kernels.mont_mul", "add": "field_kernels.add",
              "sub": "field_kernels.sub"}
@@ -325,7 +666,8 @@ def main() -> int:
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": REPLACES,
-            "launches": launches[which],
+            "launches": counts["field"][which],
+            "limb_path_launches": limb_counts["field"][which],
             "max_abs_err": max_err[which],
             "ms": main_shape["ms"],
             "call_ms": main_shape["call_ms"],
@@ -336,6 +678,36 @@ def main() -> int:
             "field": main_shape["field"],
             "n": main_shape["n"],
             "shapes": timings[which],
+            "build": build["field"],
+        })
+    point_launches = {
+        "point": {op: counts["point"][op] for op in ("add", "madd", "double")},
+        "columns": counts["point"]["columns"],
+        "fold": counts["point"]["fold"],
+    }
+    for kind, name in (("point", "point_kernels.point_op"), ("columns", "point_kernels.accumulate_columns"),
+                       ("fold", "point_kernels.fold_columns")):
+        main_row = next(r for r in point_rows[kind] if r.get("main"))
+        launches = point_launches[kind]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": POINT_SOURCE,
+            "replaces": POINT_REPLACES[kind],
+            "launches": sum(launches.values()) if kind == "point" else launches,
+            "max_abs_err": point_err[kind],
+            "ms": main_row["ms"],
+            "call_ms": main_row["call_ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": None,
+            "curve": main_row["curve"],
+            "op": main_row["op"],
+            "shape": main_row["shape"],
+            **({"launches_by_op": launches} if kind == "point" else {}),
+            "shapes": point_rows[kind],
+            "build": build[kind],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,4 @@
-"""Device-resident Groth16 prover (PyTorch; limb backend).
+"""Device-resident Groth16 prover (PyTorch).
 
 Port of `manta_tpu/models/groth16_device.py::DeviceProver`. For one proving
 key + circuit it keeps on the device, for the life of the prover:
@@ -100,16 +100,17 @@ _CONFIGS = {"bn254": PR.BN254_PAIRING, "bls12_381": PR.BLS12_381_PAIRING}
 class DeviceProver:
     """Device-resident prover for one proving key + circuit.
 
-    backend: curve backend of the MSMs. Only "limb" (one field-kernel launch
-    per field op) is ported; "fused" comes with the next slice and raises.
-    device: "cuda" by default; "cpu" runs the plain PyTorch versions.
+    backend: curve backend of the MSMs: "fused" (the default, as in the JAX
+    package: one kernel launch per point formula, the bucket loop and the
+    folds as single launches) or "limb" (one field-kernel launch per field
+    op). device: "cuda" by default; "cpu" runs the plain versions.
     """
 
     def __init__(
         self,
         pk: G.ProvingKey,
         matrices,
-        backend: str = "limb",
+        backend: str = "fused",
         window_bits: int = 13,
         column_steps: int = 128,
         lane_floor: int = 256,
@@ -191,9 +192,8 @@ class DeviceProver:
     @classmethod
     def from_numpy_state(cls, state, backend: Optional[str] = None, device="cuda"):
         """Build a prover from the dict of numpy arrays + JSON meta that
-        `save_cache` writes. `backend` overrides the one recorded in the
-        meta (the production cache records "fused", which is not ported yet:
-        pass backend="limb")."""
+        `save_cache` writes, on the curve backend the meta records (the
+        production cache: "fused") unless `backend` names another."""
         meta = json.loads(bytes(np.asarray(state["meta"])).decode())
         cfg = _CONFIGS[meta["cfg"]]
 

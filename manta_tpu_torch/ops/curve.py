@@ -9,7 +9,8 @@ when some lane needs it).
 Coordinates are field-element batches in limb-major Montgomery layout
 (`manta_tpu_torch.ops.field_ops`): (L, ...) int32 for Fq curves (G1) and
 (2, L, ...) for Fq2 curves (G2). `CoordOps` / `Fq2Ops` make the point
-formulas generic over both. Port of `manta_tpu/ops/curve.py` (limb backend).
+formulas generic over both. Port of `manta_tpu/ops/curve.py`: the limb
+backend here, the fused backend in `ops/kernels/point_kernels.py`.
 """
 
 from __future__ import annotations
@@ -236,6 +237,10 @@ class CurveOps:
     def is_infinity(self, pt: JacobianPoint):
         return self.ops.is_zero(pt.z)
 
+    def affine_infinity_mask(self, pt: JacobianPoint):
+        """Infinity test for encoder-produced affine batches (Z in {0, 1})."""
+        return self.is_infinity(pt)
+
     def double(self, pt: JacobianPoint) -> JacobianPoint:
         """dbl-2009-l (a = 0); infinity (Z = 0) maps to Z3 = 0."""
         o = self.ops
@@ -356,11 +361,18 @@ def _ops_cache(curve: hostmath.WeierstrassCurve) -> CurveOps:
 
 
 def curve_ops_for(curve: hostmath.WeierstrassCurve, backend: str = "limb") -> CurveOps:
-    """Curve ops for `backend`. Only the limb backend is ported so far."""
+    """Curve ops for `backend`: "limb" (one field-kernel launch per field op)
+    or "fused" (one kernel launch per whole formula, and the MSM's column and
+    fold kernels; `ops/kernels/point_kernels.py`). The RNS backends are not
+    ported yet."""
+    if backend == "fused":
+        from manta_tpu_torch.ops.kernels.point_kernels import fused_curve_ops_for
+
+        return fused_curve_ops_for(curve)
     if backend != "limb":
         raise NotImplementedError(
-            f"curve backend {backend!r} is not ported yet: 'fused' (whole-formula "
-            "point, column and fold kernels) comes with the next slice of the "
-            "port, the RNS backends after it; use backend='limb'"
+            f"curve backend {backend!r} is not ported yet: the RNS backends "
+            "('rns_fused', 'rns_hybrid') come with a later slice of the port; "
+            "use backend='fused' or 'limb'"
         )
     return _NAMED.get(curve.name) or _ops_cache(curve)

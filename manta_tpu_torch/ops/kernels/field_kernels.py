@@ -17,25 +17,19 @@ tensor's device:
 - CPU: the plain version below (int64 inside, same integers bit for bit).
 
 The kernel is built at first use with `nvcc` into `build/torch_kernels/` at
-the repository root (a plain C interface, loaded with ctypes).
+the repository root (a plain C interface, loaded with ctypes; `build.py`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from manta_tpu_torch.fields import LIMB_BITS, LIMB_MASK, FieldSpec
+from manta_tpu_torch.ops.kernels import build as B
 
 #: launches of the CUDA kernel per op, counted by the wrappers
 LAUNCHES = {"mul": 0, "add": 0, "sub": 0}
@@ -44,17 +38,10 @@ LAUNCHES = {"mul": 0, "add": 0, "sub": 0}
 KERNEL_FIELDS = {"bn254_fr": 0, "bn254_fq": 1, "bls12_381_fr": 2, "bls12_381_fq": 3}
 _OPS = {"mul": 0, "add": 1, "sub": 2}
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "field_kernels.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = [
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-]
+LIBRARY = B.Library("field_kernels", "field_kernels.cu", ("field_ops.cuh",))
+SOURCE = B.CSRC / LIBRARY.source
+#: the field constants and `FieldOps` shared with the point kernels
+HEADER = B.CSRC / "field_ops.cuh"
 
 
 def reset_launches() -> None:
@@ -62,54 +49,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# ---------------------------------------------------------------------------
-# Build and load
-# ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA field kernel cannot be built")
-
-
-_build_lock = threading.Lock()
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel source into a shared library (once per source
-    content) and return its path. `verbose` adds `-Xptxas -v` and prints
-    the compiler's report of registers and spills."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfield_kernels-{digest}.so"
-    with _build_lock:
-        if out.exists():
-            return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
-        os.replace(tmp, out)
-    return out
-
-
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(B.build([LIBRARY])[0]))
     fn = lib.manta_field_binary
     fn.argtypes = [
         ctypes.c_int,

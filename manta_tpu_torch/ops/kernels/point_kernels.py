@@ -1,0 +1,543 @@
+"""Whole-formula curve kernels: point op, bucket column, fold; CUDA and plain.
+
+Replaces the JAX package's Pallas TPU kernels of
+`manta_tpu/ops/pallas/point_kernels.py`: `_point_op` (public `fused_add`,
+`fused_madd`, `fused_double`), `_column_call` (`accumulate_columns`) and
+`_fold_call` (`fold_columns`), with the backend object `FusedCurveOps` /
+`fused_curve_ops_for`. The kernel source is `manta_tpu_torch/csrc/
+point_kernels.cu` (formulas in `point_ops.cuh`); its header gives the bound
+on the H100 and what the design does about it.
+
+Layout at the boundary, as in the JAX package: coordinates limb-major int32,
+`(L, ...)` for G1 and `(2, L, ...)` for G2, Montgomery form, lazy [0, 2p);
+the column and fold streams `(K, *E, R)` with masks `(K, R)`. Each public
+function dispatches on the tensors' device:
+
+- CUDA: one launch of the curve's kernel on the current stream, counted in
+  `LAUNCHES`. No fallback: an unsupported curve, dtype or shape raises, and
+  so does a failed build or launch.
+- CPU: the plain version (`PLAIN`).
+
+The plain versions run the port's own `CurveOps.add / madd / double`
+(`ops/curve.py`) — the limb formulas, the same field operations on the same
+operands — over a per-lane representation of the coordinates as Python
+integers (`_LaneInts`), with the field ops defined as the integers that the
+limb functions and the kernel compute: a·b·R⁻¹ mod R by Montgomery without
+a final subtract, add and sub against 2p. The column and fold versions are
+Python loops over K of those formulas with `select`, written from the JAX
+kernel bodies. Integers per lane keep the K-step loops cheap on the CPU,
+where a limb-tensor field op costs about the same at any small lane count;
+the CPU tests hold them against the limb `CurveOps` and the JAX kernels, and
+`chip_smoke.py` holds the kernels against them bit for bit. The same column
+and fold loops also run over the limb `CurveOps` on the tensors' own device
+(`limb_accumulate_columns`, `limb_fold_columns`): on the card that is the
+reference at the prover's shapes, where the host integers are too slow.
+
+The kernels are built at first use with `nvcc`, one shared library per curve
+(`build.py`), into `build/torch_kernels/`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from manta_tpu_torch.fields import LIMB_BITS, FieldSpec
+from manta_tpu_torch.ops import curve as C
+from manta_tpu_torch.ops.curve import JacobianPoint
+from manta_tpu_torch.ops.kernels import build as B
+from manta_tpu_torch.utils import hostmath
+
+#: launches of the CUDA kernels, counted by the wrappers: the point-op kernel
+#: by formula, the column and the fold kernel
+LAUNCHES = {"add": 0, "madd": 0, "double": 0, "columns": 0, "fold": 0}
+
+#: curve name -> the MANTA_CURVE id of `point_kernels.cu`
+KERNEL_CURVES = {"bn254_g1": 0, "bn254_g2": 1, "bls12_381_g1": 2, "bls12_381_g2": 3}
+#: the MANTA_KERNEL ids of `point_kernels.cu`: one object each
+KERNELS = ("add", "madd", "double", "columns", "fold")
+
+SOURCE = B.CSRC / "point_kernels.cu"
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def library(curve_name: str) -> B.Library:
+    curve = f"MANTA_CURVE={KERNEL_CURVES[curve_name]}"
+    units = tuple((curve, f"MANTA_KERNEL={k}") for k in range(len(KERNELS)))
+    return B.Library(f"point_kernels-{curve_name}", SOURCE.name,
+                     ("field_ops.cuh", "point_ops.cuh"), units)
+
+
+LIBRARIES = tuple(library(name) for name in KERNEL_CURVES)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(curve_name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(B.build([library(curve_name)])[0]))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for which in ("add", "madd", "double"):
+        getattr(lib, f"manta_point_{which}").argtypes = [*[ptr] * 9, i64, ptr]
+    lib.manta_accumulate_columns.argtypes = [*[ptr] * 7, i32, i64, ptr]
+    lib.manta_fold_columns.argtypes = [*[ptr] * 10, i32, i64, ptr]
+    for which in ("point_add", "point_madd", "point_double", "accumulate_columns",
+                  "fold_columns"):
+        getattr(lib, f"manta_{which}").restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: CurveOps formulas over per-lane Python integers
+# ---------------------------------------------------------------------------
+
+
+class _LaneInts:
+    """Base-field ops on numpy object arrays of Python ints, one per lane:
+    the integers of `field_ops` (lazy [0, 2p), Montgomery R = 2^(16·L))."""
+
+    def __init__(self, spec: FieldSpec):
+        self.spec = spec
+        self.bits = LIMB_BITS * spec.num_limbs
+        self.mask = (1 << self.bits) - 1
+        self.p = spec.modulus
+        self.two_p = 2 * spec.modulus
+        self.n_prime = (-pow(spec.modulus, -1, 1 << self.bits)) & self.mask
+        self.one = spec.R
+
+    def add(self, a, b):
+        s = a + b
+        return np.where(s >= self.two_p, (s - self.two_p) & self.mask, s)
+
+    def sub(self, a, b):
+        d = a - b
+        return np.where(d < 0, (d + self.two_p) & self.mask, d)
+
+    def mul(self, a, b):
+        t = a * b
+        m = ((t & self.mask) * self.n_prime) & self.mask
+        return ((t + m * self.p) >> self.bits) & self.mask
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def neg(self, a):
+        return self.sub(self.zeros_like(a), a)
+
+    def double(self, a):
+        return self.add(a, a)
+
+    def triple(self, a):
+        return self.add(self.add(a, a), a)
+
+    def is_zero(self, a):
+        return (a == 0) | (a == self.p)
+
+    def select(self, mask, a, b):
+        return np.where(mask, a, b)
+
+    def zeros_like(self, a):
+        return np.zeros_like(a)
+
+    def one_like(self, a):
+        return np.full(a.shape, self.one, dtype=object)
+
+
+class _LaneInts2:
+    """Fq2 ops on (2, ...) object arrays, in the op order of `curve.Fq2Ops`."""
+
+    def __init__(self, spec: FieldSpec):
+        self.base = _LaneInts(spec)
+
+    def add(self, a, b):
+        return np.stack([self.base.add(a[0], b[0]), self.base.add(a[1], b[1])])
+
+    def sub(self, a, b):
+        return np.stack([self.base.sub(a[0], b[0]), self.base.sub(a[1], b[1])])
+
+    def neg(self, a):
+        return self.sub(self.zeros_like(a), a)
+
+    def mul(self, a, b):
+        o = self.base
+        s0, s1 = o.add(a[0], a[1]), o.add(b[0], b[1])
+        t0, t1, t2 = o.mul(a[0], b[0]), o.mul(a[1], b[1]), o.mul(s0, s1)
+        return np.stack([o.sub(t0, t1), o.sub(o.sub(t2, t0), t1)])
+
+    def sqr(self, a):
+        o = self.base
+        t = o.mul(o.add(a[0], a[1]), o.sub(a[0], a[1]))
+        return np.stack([t, o.double(o.mul(a[0], a[1]))])
+
+    def double(self, a):
+        return self.add(a, a)
+
+    def triple(self, a):
+        return self.add(self.add(a, a), a)
+
+    def is_zero(self, a):
+        return self.base.is_zero(a[0]) & self.base.is_zero(a[1])
+
+    def select(self, mask, a, b):
+        return np.where(mask, a, b)
+
+    def zeros_like(self, a):
+        return np.zeros_like(a)
+
+    def one_like(self, a):
+        return np.stack([self.base.one_like(a[0]), self.base.zeros_like(a[1])])
+
+
+@dataclasses.dataclass(frozen=True)
+class _LaneCurve(C.CurveOps):
+    """`CurveOps` whose formulas run over `_LaneInts` coordinates."""
+
+    @functools.cached_property
+    def ops(self):
+        spec = self.curve.field
+        return _LaneInts2(spec) if self.curve.is_ext else _LaneInts(spec)
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_curve(curve: hostmath.WeierstrassCurve) -> _LaneCurve:
+    return _LaneCurve(curve, backend="plain")
+
+
+def _to_ints(t: torch.Tensor, ext: bool) -> np.ndarray:
+    """(L, *batch) / (2, L, *batch) limbs -> object array (*batch) / (2, *batch)."""
+    a = t.detach().cpu().numpy()
+    limb_axis = 1 if ext else 0
+    L = a.shape[limb_axis]
+    rows = np.ascontiguousarray(np.moveaxis(a, limb_axis, -1).astype("<u2"))
+    raw = rows.tobytes()
+    w = 2 * L
+    out = np.empty(rows.size // L, dtype=object)
+    out[:] = [int.from_bytes(raw[i : i + w], "little") for i in range(0, len(raw), w)]
+    return out.reshape(rows.shape[:-1])
+
+
+def _from_ints(v: np.ndarray, L: int, ext: bool, device) -> torch.Tensor:
+    raw = b"".join(int(x).to_bytes(2 * L, "little") for x in v.reshape(-1))
+    a = np.frombuffer(raw, dtype="<u2").reshape(*v.shape, L)
+    a = np.ascontiguousarray(np.moveaxis(a, -1, 1 if ext else 0)).astype(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def _point_to_ints(curve, pt: JacobianPoint) -> JacobianPoint:
+    return JacobianPoint(*(_to_ints(c, curve.is_ext) for c in pt))
+
+
+def _point_from_ints(curve, pt: JacobianPoint, device) -> JacobianPoint:
+    L = curve.field.num_limbs
+    return JacobianPoint(*(_from_ints(c, L, curve.is_ext, device) for c in pt))
+
+
+def _steps_last(a: torch.Tensor) -> torch.Tensor:
+    """(K, *E, R) stream -> (*E, K, R): a coordinate with batch (K, R)."""
+    return a.movedim(0, -2)
+
+
+def _steps_first(a: torch.Tensor) -> torch.Tensor:
+    return a.movedim(-2, 0).contiguous()
+
+
+def _step(v: np.ndarray, k: int) -> np.ndarray:
+    return v[..., k, :]
+
+
+def _stream_from_ints(curve, steps, device) -> JacobianPoint:
+    """Per-step points of (R,) lanes -> a (K, *E, R) stream on `device`."""
+    stacked = JacobianPoint(*(np.stack([t[i] for t in steps], axis=-2) for i in range(3)))
+    return JacobianPoint(*map(_steps_first, _point_from_ints(curve, stacked, device)))
+
+
+def _stream_from_tensors(steps) -> JacobianPoint:
+    return JacobianPoint(*(torch.stack([t[i] for t in steps]) for i in range(3)))
+
+
+def _column_loop(cops, X, Y, q_inf, heads, step) -> list:
+    """The column kernel's loop over `cops`' formulas: per lane, for k < K,
+    acc = q[k] if head[k] else madd(acc, q[k]), q = infinity where qinf[k];
+    the accumulator after every step (`point_kernels.py:650-669` of the JAX
+    package). `step(v, k)` is step k of a coordinate stream."""
+    o = cops.ops
+    x0 = step(X, 0)
+    acc = JacobianPoint(o.zeros_like(x0), o.one_like(x0), o.zeros_like(x0))
+    outs = []
+    for k in range(len(heads)):
+        qx = step(X, k)
+        one = o.one_like(qx)
+        qz = o.select(q_inf[k], o.zeros_like(qx), one)
+        q = JacobianPoint(qx, o.select(q_inf[k], one, step(Y, k)), qz)
+        added = cops.madd(acc, q)
+        acc = JacobianPoint(*(o.select(heads[k], a, b) for a, b in zip(q, added)))
+        outs.append(acc)
+    return outs
+
+
+def _fold_loop(cops, Q: JacobianPoint, heads, step) -> tuple:
+    """The fold kernel's loop: per lane, A = q[k] if head[k] else add(A, q[k]);
+    B = add(B, A); both after every step (`point_kernels.py:762-781` of the
+    JAX package)."""
+    o = cops.ops
+    x0 = step(Q.x, 0)
+    inf = JacobianPoint(o.zeros_like(x0), o.one_like(x0), o.zeros_like(x0))
+    a, b = inf, inf
+    a_out, b_out = [], []
+    for k in range(len(heads)):
+        q = JacobianPoint(*(step(c, k) for c in Q))
+        added = cops.add(a, q)
+        a = JacobianPoint(*(o.select(heads[k], u, v) for u, v in zip(q, added)))
+        b = cops.add(b, a)
+        a_out.append(a)
+        b_out.append(b)
+    return a_out, b_out
+
+
+def plain_point_op(curve, which: str, p: JacobianPoint, q: JacobianPoint = None):
+    """add / madd / double of `CurveOps` on (*E, n) coordinates."""
+    lc = _lane_curve(curve)
+    pi = _point_to_ints(curve, p)
+    if which == "double":
+        r = lc.double(pi)
+    else:
+        r = getattr(lc, which)(pi, _point_to_ints(curve, q))
+    return _point_from_ints(curve, r, p.x.device)
+
+
+def plain_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
+    """Per lane, for k < K: acc = q[k] if head[k] else madd(acc, q[k]), q =
+    infinity where qinf[k]; acc after every step, (K, *E, R) each."""
+    X = _to_ints(_steps_last(px), curve.is_ext)
+    Y = _to_ints(_steps_last(py), curve.is_ext)
+    q_inf = qinf.detach().cpu().numpy() != 0
+    heads = head.detach().cpu().numpy() != 0
+    outs = _column_loop(_lane_curve(curve), X, Y, q_inf, heads, _step)
+    return _stream_from_ints(curve, outs, px.device)
+
+
+def plain_fold_columns(curve, qx, qy, qz, head):
+    """Per lane: A = q[k] if head[k] else add(A, q[k]); B = add(B, A); both
+    streams (K, *E, R)."""
+    Q = JacobianPoint(*(_to_ints(_steps_last(c), curve.is_ext) for c in (qx, qy, qz)))
+    heads = head.detach().cpu().numpy() != 0
+    a_out, b_out = _fold_loop(_lane_curve(curve), Q, heads, _step)
+    return _stream_from_ints(curve, a_out, qx.device), _stream_from_ints(curve, b_out, qx.device)
+
+
+def limb_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
+    """`plain_accumulate_columns` through the limb `CurveOps` on the
+    tensors' own device (on CUDA, one field-kernel launch per field op): the
+    same loop over the same formulas, fast enough on the card to hold the
+    column kernel against at the prover's shapes."""
+    outs = _column_loop(C.curve_ops_for(curve, "limb"), px, py, qinf.bool(), head.bool(),
+                        lambda v, k: v[k])
+    return _stream_from_tensors(outs)
+
+
+def limb_fold_columns(curve, qx, qy, qz, head):
+    """`plain_fold_columns` through the limb `CurveOps` on the tensors' own
+    device."""
+    a_out, b_out = _fold_loop(C.curve_ops_for(curve, "limb"), JacobianPoint(qx, qy, qz),
+                              head.bool(), lambda v, k: v[k])
+    return _stream_from_tensors(a_out), _stream_from_tensors(b_out)
+
+
+def plain_add(curve, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+    return plain_point_op(curve, "add", p, q)
+
+
+def plain_madd(curve, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+    return plain_point_op(curve, "madd", p, q)
+
+
+def plain_double(curve, p: JacobianPoint) -> JacobianPoint:
+    return plain_point_op(curve, "double", p)
+
+
+PLAIN = {
+    "add": plain_add,
+    "madd": plain_madd,
+    "double": plain_double,
+    "columns": plain_accumulate_columns,
+    "fold": plain_fold_columns,
+}
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _edims(curve) -> tuple:
+    L = curve.field.num_limbs
+    return (2, L) if curve.is_ext else (L,)
+
+
+def _on_cuda(curve, tensors) -> bool:
+    """True for CUDA tensors the kernels take, False for CPU tensors; raises
+    for anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no point kernel for device {dev}")
+    if curve.name not in KERNEL_CURVES:
+        raise ValueError(f"the CUDA point kernels have no build for {curve.name}")
+    if dev.index not in (None, torch.cuda.current_device()):
+        raise ValueError(f"operands on {dev}, current CUDA device is "
+                         f"{torch.cuda.current_device()}")
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"point kernels take int32 limbs, got {t.dtype}")
+    return True
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _point_op(curve, which: str, p: JacobianPoint, q: JacobianPoint = None) -> JacobianPoint:
+    pts = [*p] if q is None else [*p, *q]
+    edims = _edims(curve)
+    shape = p.x.shape
+    if shape[: len(edims)] != edims or any(c.shape != shape for c in pts):
+        raise ValueError(f"expected coordinates of one shape ({', '.join(map(str, edims))}, "
+                         f"...), got {[tuple(c.shape) for c in pts]}")
+    n = 1
+    for d in shape[len(edims):]:
+        n *= d
+    flat = [c.reshape(*edims, n).contiguous() for c in pts]
+    if not _on_cuda(curve, flat):
+        if n == 0:
+            return JacobianPoint(*(c.clone() for c in p))
+        fp = JacobianPoint(*flat[:3])
+        fq = None if q is None else JacobianPoint(*flat[3:])
+        out = plain_point_op(curve, which, fp, fq)
+    else:
+        out = JacobianPoint(*(torch.empty_like(flat[0]) for _ in range(3)))
+        if n:
+            ins = flat if q is not None else flat * 2
+            err = getattr(_lib(curve.name), f"manta_point_{which}")(
+                *(t.data_ptr() for t in ins),
+                *(t.data_ptr() for t in out), n, _stream())
+            _check_launch(err, f"point {which}")
+            LAUNCHES[which] += 1
+    return JacobianPoint(*(c.reshape(shape) for c in out))
+
+
+def fused_add(curve, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+    """Complete Jacobian addition, one launch for the whole formula."""
+    return _point_op(curve, "add", p, q)
+
+
+def fused_madd(curve, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+    """Mixed addition (q affine, Z in {0, 1}), one launch."""
+    return _point_op(curve, "madd", p, q)
+
+
+def fused_double(curve, p: JacobianPoint) -> JacobianPoint:
+    """Doubling, one launch."""
+    return _point_op(curve, "double", p)
+
+
+def _check_stream(curve, coords, masks) -> tuple:
+    K = coords[0].shape[0]
+    shape = (K, *_edims(curve), coords[0].shape[-1])
+    if any(tuple(c.shape) != shape for c in coords) or any(
+        tuple(m.shape) != (K, shape[-1]) for m in masks
+    ):
+        raise ValueError(f"expected (K, *E, R) = {shape} streams and (K, R) masks, got "
+                         f"{[tuple(c.shape) for c in coords]}, {[tuple(m.shape) for m in masks]}")
+    return K, shape[-1]
+
+
+def accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
+    """The K-step bucket accumulation over the sorted affine stream `px, py`
+    (K, *E, R) with masks `qinf, head` (K, R): the accumulator after every
+    step, (K, *E, R) each. See `plain_accumulate_columns`."""
+    K, R = _check_stream(curve, (px, py), (qinf, head))
+    if not _on_cuda(curve, (px, py)):
+        return plain_accumulate_columns(curve, px, py, qinf, head)
+    if qinf.device != px.device or head.device != px.device:
+        raise ValueError("masks and stream on different devices")
+    px, py = px.contiguous(), py.contiguous()
+    masks = [m.to(torch.int32).contiguous() for m in (qinf, head)]
+    out = JacobianPoint(*(torch.empty_like(px) for _ in range(3)))
+    if K and R:
+        err = _lib(curve.name).manta_accumulate_columns(
+            px.data_ptr(), py.data_ptr(), *(m.data_ptr() for m in masks),
+            *(t.data_ptr() for t in out), K, R, _stream())
+        _check_launch(err, "column")
+        LAUNCHES["columns"] += 1
+    return out
+
+
+def fold_columns(curve, qx, qy, qz, head):
+    """Segmented sums over the projective stream `qx, qy, qz` (K, *E, R) with
+    `head` (K, R): the post-step accumulator stream A and the suffix stream B
+    (B[k] = sum of A[k'] for k' <= k). See `plain_fold_columns`."""
+    K, R = _check_stream(curve, (qx, qy, qz), (head,))
+    if not _on_cuda(curve, (qx, qy, qz)):
+        return plain_fold_columns(curve, qx, qy, qz, head)
+    if head.device != qx.device:
+        raise ValueError("mask and stream on different devices")
+    ins = [c.contiguous() for c in (qx, qy, qz)]
+    hd = head.to(torch.int32).contiguous()
+    outs = [torch.empty_like(ins[0]) for _ in range(6)]
+    if K and R:
+        err = _lib(curve.name).manta_fold_columns(
+            *(t.data_ptr() for t in ins), hd.data_ptr(),
+            *(t.data_ptr() for t in outs), K, R, _stream())
+        _check_launch(err, "fold")
+        LAUNCHES["fold"] += 1
+    return JacobianPoint(*outs[:3]), JacobianPoint(*outs[3:])
+
+
+# ---------------------------------------------------------------------------
+# The fused curve backend
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedCurveOps(C.CurveOps):
+    """CurveOps whose group law runs as whole-formula kernels.
+
+    `ops` stays the limb `CoordOps` / `Fq2Ops` (select, is_zero, neg for the
+    MSM's glue); add / madd / double launch one kernel each, and the MSM
+    finds `run_columns` / `run_fold_columns` and runs its bucket loop and
+    folds as single launches (`ops/msm.py`)."""
+
+    def add(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+        return fused_add(self.curve, p, q)
+
+    def madd(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+        return fused_madd(self.curve, p, q)
+
+    def double(self, p: JacobianPoint) -> JacobianPoint:
+        return fused_double(self.curve, p)
+
+    def run_columns(self, px, py, qinf, head) -> JacobianPoint:
+        return accumulate_columns(self.curve, px, py, qinf, head)
+
+    def run_fold_columns(self, qx, qy, qz, head):
+        return fold_columns(self.curve, qx, qy, qz, head)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_curve_ops_for(curve: hostmath.WeierstrassCurve) -> FusedCurveOps:
+    return FusedCurveOps(curve, backend="fused")

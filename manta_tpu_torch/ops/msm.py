@@ -1,25 +1,37 @@
-"""Pippenger multi-scalar multiplication on the GPU (PyTorch), limb backend.
+"""Pippenger multi-scalar multiplication on the GPU (PyTorch).
 
-Port of the non-fused path of `manta_tpu/ops/msm.py`:
+Port of `manta_tpu/ops/msm.py`, limb and fused backends:
 
 1. **Windows**: c-bit windows (c <= 16); signed recoding halves the bucket
    count and trims the window count to ceil(bits/c).
 2. **Bucket accumulation** — sequential-column segmented reduce, for all
-   windows at once (the JAX package's non-fused path loops over windows;
-   the sums are the same, the launches 1/W as many): one stable `torch.sort`
-   of each window's digits; lane j of a window owns the contiguous sorted
-   chunk [jK, (j+1)K) and a Python loop of K mixed additions walks every
-   window's lanes together, the accumulator restarting at digit boundaries.
-   Completed runs land in their bucket; runs that span chunks leave trailing
-   partials that one segmented scan folds into a second bucket batch.
-3. **Bucket reduction**: sum_b b·S_b via b = 2^c2·h + l — row and column
-   sums of the (2^c1, 2^c2) bucket matrix by pairwise halving, then two small
-   weighted sums (suffix scans), batched over all windows.
+   windows at once (the JAX package loops over windows; the sums are the
+   same, the launches 1/W as many): one stable `torch.sort` of each window's
+   digits; lane j of a window owns the contiguous sorted chunk [jK, (j+1)K)
+   and K mixed additions walk every window's lanes together, the
+   accumulator restarting at digit boundaries. On the fused backend
+   (`_fused`) the K steps are ONE launch of the column kernel over all
+   windows' lanes (K, *E, W·R), where the JAX package launches it once per
+   window on R lanes; each lane keeps the chunk and the order of steps it has
+   there, so every bucket value is bit for bit the JAX package's. The kernel
+   takes any lane count, so it also serves the R that the JAX package's
+   kernel cannot (not a multiple of 128: there, K launches of the fused
+   mixed addition add up the same per-lane chains). Completed
+   runs land in their bucket (located by `_run_ends_compact`); runs that span
+   chunks leave trailing partials that a segmented fold adds into a second
+   bucket batch.
+3. **Bucket reduction**: sum_b b·S_b. On the fold path of the fused backend
+   (`msm`'s `fold_path`) the trailing partials and the weighted sum go
+   through the fold kernel (`_fold_trailing_fused`, `_weighted_fold_fused`);
+   otherwise via b = 2^c2·h + l — row and column sums of the (2^c1, 2^c2)
+   bucket matrix by pairwise halving, then two small weighted sums (suffix
+   scans). Both batched over all windows.
 4. **Window combine**: Horner over windows (c doublings per window).
 
-Every field operation is one launch of the field kernel on a CUDA tensor
-(`ops/kernels/field_kernels.py`). The fused column/fold kernels and GLV are
-later slices of the port.
+On the limb backend every field operation is one launch of the field kernel
+on a CUDA tensor (`ops/kernels/field_kernels.py`); on the fused backend each
+point formula is one launch (`ops/kernels/point_kernels.py`) and only the
+glue (selects, negations) runs as field ops. GLV is a later slice.
 """
 
 from __future__ import annotations
@@ -39,6 +51,12 @@ _BIG = torch.iinfo(torch.int64).max
 
 def _map(pt: JacobianPoint, fn) -> JacobianPoint:
     return JacobianPoint(fn(pt.x), fn(pt.y), fn(pt.z))
+
+
+def _fused(cops: C.CurveOps) -> bool:
+    """Fused backend: whole point formulas, the column loop and the folds run
+    as single kernels (`ops/kernels/point_kernels.py`)."""
+    return hasattr(cops, "run_columns")
 
 
 def window_digits(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:
@@ -188,6 +206,94 @@ def _fold_partials(
     return store.buckets()
 
 
+def _run_ends_compact(d_flat: torch.Tensor, end_flat: torch.Tensor, num_buckets: int):
+    """Locate each window's run ends with index math over rows (W, KR):
+    pos_c[w, s] is the stream position of the end of window w's s-th run
+    (clamped), idx_b[w, s] its bucket (num_buckets = no run, dropped)."""
+    num_windows, kr = d_flat.shape
+    rank = torch.cumsum(end_flat.to(torch.int64), -1)
+    slots = torch.where(end_flat, rank - 1, num_buckets).clamp_(max=num_buckets)
+    iota = torch.arange(kr, device=d_flat.device).expand(num_windows, kr)
+    pos = torch.full((num_windows, num_buckets + 1), kr, dtype=torch.int64, device=d_flat.device)
+    pos = pos.scatter_(-1, slots, iota)[:, :num_buckets]
+    valid = pos < kr
+    pos_c = pos.clamp(max=kr - 1)
+    idx_b = torch.where(valid, d_flat.gather(-1, pos_c), num_buckets)
+    return pos_c, idx_b
+
+
+def _scatter_drop(binf: JacobianPoint, idx: torch.Tensor, val: JacobianPoint) -> JacobianPoint:
+    """binf with val[..., s] written at bucket idx[..., s] along the last
+    axis; an index equal to the bucket count is dropped (the JAX package's
+    `.at[idx].set(mode="drop")`)."""
+
+    def put(b, v):
+        spare = torch.cat([b, b[..., :1]], -1).contiguous()
+        ix = idx.expand(*v.shape[:-idx.ndim], *idx.shape)
+        return spare.scatter_(-1, ix, v)[..., : b.shape[-1]]
+
+    return JacobianPoint(*(put(b, v) for b, v in zip(binf, val)))
+
+
+def _bucket_sums_fused(
+    cops: C.CurveOps,
+    digits: torch.Tensor,
+    points: JacobianPoint,
+    num_buckets: int,
+    steps: int,
+    negs=None,
+    parts: bool = False,
+):
+    """Fused bucket accumulation, all windows at once: one column-kernel
+    launch over the (K, *E, W·R) sorted affine stream emits the accumulator
+    after every step; the <= num_buckets run-end values of each window are
+    picked out of it and written to their buckets.
+
+    Returns the (*E, W, num_buckets) buckets; with `parts`, instead the
+    run-end buckets, the trailing accumulators (*E, W, R) and d_t (K, W, R)
+    for the fold path."""
+    num_windows, n = digits.shape
+    lanes = n // steps
+    perm, d_t, head, end = _sorted_layout(digits, steps)
+
+    def gather(a):  # (*E, n) -> (K, *E, W*R), contiguous per step
+        g = a[..., perm].movedim(-2, 0)
+        return g.reshape(*g.shape[:-2], num_windows * lanes)
+
+    px, py = gather(points.x), gather(points.y)
+    if negs is not None:
+        neg_t = negs.gather(-1, perm.reshape(num_windows, -1)).reshape(perm.shape)
+        neg_t = neg_t.permute(1, 0, 2).reshape(steps, *(1,) * (py.ndim - 2), -1)
+        py = torch.where(neg_t, gather(cops.ops.neg(points.y)), py)
+    qinf = cops.affine_infinity_mask(points)[perm].permute(1, 0, 2)  # (K, W, R)
+    ox, oy, oz = cops.run_columns(
+        px, py, qinf.reshape(steps, -1), head.reshape(steps, -1)
+    )
+    stream = JacobianPoint(
+        *(a.reshape(*a.shape[:-1], num_windows, lanes) for a in (ox, oy, oz))
+    )  # (K, *E, W, R)
+
+    def tmpl(a):
+        return torch.zeros((*a.shape[1:-1], num_buckets), dtype=a.dtype, device=a.device)
+
+    binf = cops.infinity_like(_map(stream, tmpl))
+    # run ends in each window's stream order [k, j] -> k*R + j
+    d_flat = d_t.permute(1, 0, 2).reshape(num_windows, -1)
+    end_flat = end.permute(1, 0, 2).reshape(num_windows, -1)
+    pos_c, idx_b = _run_ends_compact(d_flat, end_flat, num_buckets)
+
+    def pick(a):  # (K, *E, W, R) -> (*E, W, num_buckets) values at run ends
+        flat = a.movedim(0, -2).reshape(*a.shape[1:-2], num_windows, steps * lanes)
+        return flat.gather(-1, pos_c.expand(*flat.shape[:-2], *pos_c.shape))
+
+    buckets_a = _scatter_drop(binf, idx_b, _map(stream, pick))
+    acc_last = _map(stream, lambda a: a[-1])
+    if parts:
+        return buckets_a, acc_last, d_t
+    buckets_b = _fold_partials(cops, acc_last, d_t, binf, num_buckets)
+    return cops.add(buckets_a, buckets_b)
+
+
 def _bucket_sums(
     cops: C.CurveOps,
     digits: torch.Tensor,
@@ -206,6 +312,8 @@ def _bucket_sums(
     steps = min(column_steps, n)
     lanes = n // steps
     assert lanes * steps == n
+    if _fused(cops):
+        return _bucket_sums_fused(cops, digits, points, num_buckets, steps, negs)
     o = cops.ops
     perm, d_t, head, end = _sorted_layout(digits, steps)
 
@@ -234,6 +342,130 @@ def _bucket_sums(
         store.put(end[k], d_t[k], acc)
     buckets_b = _fold_partials(cops, acc, d_t, binf, num_buckets)
     return cops.add(store.buckets(), buckets_b)
+
+
+def _chunk_t(a: torch.Tensor, k2: int) -> torch.Tensor:
+    """(..., n) -> (K2, ..., n // K2) with out[k, ..., j] = a[..., j*K2 + k]:
+    each output lane owns a contiguous chunk, as in `_sorted_layout`."""
+    return a.reshape(*a.shape[:-1], a.shape[-1] // k2, k2).movedim(-1, 0)
+
+
+def _merge_lanes(a: torch.Tensor) -> torch.Tensor:
+    """(K, ..., W, R2) -> (K, ..., W*R2): windows stay lane-separated."""
+    return a.reshape(*a.shape[:-2], a.shape[-2] * a.shape[-1])
+
+
+def _fold_trailing_fused(
+    cops: C.CurveOps, acc_last: JacobianPoint, last_d, first_d, num_buckets: int
+):
+    """Fold the per-window cross-chunk trailing partials through the fold
+    kernel (2 levels), all windows at once: the semantics of `_fold_partials`.
+
+    acc_last: (*E, W, R) trailing accumulators; last_d/first_d: (W, R) last
+    and first digit of each chunk. Returns two (*E, W, num_buckets) bucket
+    arrays (disjoint deposits; the caller adds them in). Level 2 runs on W
+    lanes where the JAX package pads them to 128 with dead rows, which
+    deposit nothing."""
+    o = cops.ops
+    num_windows, lanes = last_d.shape
+    r2 = 128
+    k2 = lanes // r2
+    bp = num_buckets + 1  # per-window slots incl. one garbage column
+    dead = num_windows * bp  # out of range everywhere -> dropped
+    dev = last_d.device
+    w_ids = torch.arange(num_windows, device=dev)[:, None]
+    # lane j's trailing partial joins iff its run continues into lane j+1;
+    # keys w*bp + digit keep windows apart
+    no = torch.zeros((num_windows, 1), dtype=torch.bool, device=dev)
+    cont = torch.cat([last_d[:, :-1] == first_d[:, 1:], no], -1)
+    key = torch.where(cont, w_ids * bp + last_d, dead)
+    inf = cops.infinity_like(acc_last)
+    val = JacobianPoint(*(o.select(cont, a, i) for a, i in zip(acc_last, inf)))
+
+    def level(val, key, rows, k):
+        """One fold level over `rows` sequences (key (rows, seqlen), val
+        (*E, rows, seqlen)): chunk-transpose into (k, rows*seqlen/k), run the
+        fold kernel, deposit the run ends into a (rows*bp) bucket array."""
+        kt = _merge_lanes(_chunk_t(key, k))  # (k, lanes)
+        ct = _map(val, lambda a: _merge_lanes(_chunk_t(a, k)))
+        first = torch.ones((1, kt.shape[1]), dtype=torch.bool, device=dev)
+        head = torch.cat([first, kt[1:] != kt[:-1]])
+        astream, _ = cops.run_fold_columns(ct.x, ct.y, ct.z, head)
+        last = torch.ones((rows, 1), dtype=torch.bool, device=dev)
+        end_seq = torch.cat([key[:, :-1] != key[:, 1:], last], -1)
+        end_flat = _merge_lanes(_chunk_t(end_seq, k)).reshape(-1)
+        end_key = torch.where(end_flat, kt.reshape(-1), dead)
+
+        def tmpl(a):
+            return torch.zeros((*a.shape[1:-1], dead), dtype=a.dtype, device=a.device)
+
+        binf = cops.infinity_like(_map(astream, tmpl))
+        flat = _map(astream, lambda a: a.movedim(0, -2).reshape(*a.shape[1:-1], -1))
+        deposits = _scatter_drop(binf, end_key, flat)
+        return deposits, _map(astream, lambda a: a[-1]), kt
+
+    def unflat(dep):
+        return _map(dep, lambda a: a.reshape(*a.shape[:-1], num_windows, bp)[..., :num_buckets])
+
+    # level 1: W rows of R-long sequences -> (K2 steps, W*128 lanes)
+    b1, trail1, kt1 = level(val, key, num_windows, k2)
+    # level 2: each window's 128 lane-trailing partials, one 128-step chain
+    tkey, fkey = kt1[-1], kt1[0]  # lane order l = w*128 + j2
+    cont2 = torch.cat([tkey[:-1] == fkey[1:], no[0]])
+    key2 = torch.where(cont2, tkey, dead)
+    inf2 = cops.infinity_like(trail1)
+    val2 = JacobianPoint(*(o.select(cont2, a, i) for a, i in zip(trail1, inf2)))
+    rows2 = _map(val2, lambda a: a.reshape(*a.shape[:-1], num_windows, r2))
+    b2, _, _ = level(rows2, key2.reshape(num_windows, r2), num_windows, r2)
+    return unflat(b1), unflat(b2)
+
+
+def _weighted_fold_fused(
+    cops: C.CurveOps, buckets: JacobianPoint, num_buckets: int, signed: bool
+) -> JacobianPoint:
+    """sum_{b>=1} b·S_b per window through the fold kernel.
+
+    buckets: (*E, W, num_buckets). Split b = j·Kw + m' (m' in [1, Kw]):
+    feeding each kernel lane its buckets in DESCENDING order makes the
+    kernel's suffix accumulator B end at sum_m' m'·S and A at T_j = sum S.
+    Then sum_b b·S_b = Kw·sum_j j·T_j + sum_j B_j, the level-2 sums by one
+    more fold launch over lanes [T | B] (2W lanes; the JAX package pads them
+    to 128). Returns (*E, W, 1), the layout the Horner combine takes."""
+    num_windows = buckets.x.shape[-2]
+    m = num_buckets - 1 if signed else num_buckets  # covered b range [1, M]
+    rw = 128
+    kw = m // rw
+
+    def stream1(a):
+        s = a[..., 1:]  # drop bucket 0 (weight 0)
+        if not signed:
+            # a phantom bucket at b = 2^c: zeros, which the formulas treat as infinity
+            s = torch.cat([s, s.new_zeros((*s.shape[:-1], 1))], -1)
+        r = s.reshape(*s.shape[:-1], rw, kw).flip(-1).movedim(-1, 0)  # (Kw, *E, W, Rw)
+        return _merge_lanes(r)
+
+    heads = torch.zeros((kw, num_windows * rw), dtype=torch.bool, device=buckets.x.device)
+    astr, bstr = cops.run_fold_columns(*map(stream1, buckets), heads)
+    t_sum, b_sum = _map(astr, lambda a: a[-1]), _map(bstr, lambda a: a[-1])  # (*E, W*Rw)
+
+    def stream2(a_t, a_b):  # per window: T descending j, then B -> (Rw, *E, 2W)
+        rt = a_t.reshape(*a_t.shape[:-1], num_windows, rw).flip(-1)
+        rb = a_b.reshape(*a_b.shape[:-1], num_windows, rw)
+        return torch.cat([rt, rb], -2).movedim(-1, 0).contiguous()
+
+    heads2 = torch.zeros((rw, 2 * num_windows), dtype=torch.bool, device=buckets.x.device)
+    astr2, bstr2 = cops.run_fold_columns(
+        *(stream2(t, b) for t, b in zip(t_sum, b_sum)), heads2
+    )
+    fin_a, fin_b = _map(astr2, lambda a: a[-1]), _map(bstr2, lambda a: a[-1])
+    a2 = _map(fin_a, lambda a: a[..., :num_windows])  # sum_j T_j
+    b2 = _map(fin_b, lambda a: a[..., :num_windows])  # sum_j (j+1) T_j
+    a3 = _map(fin_a, lambda a: a[..., num_windows:])  # sum_j B_j
+    # S_w = Kw·(B2 − A2) + A3
+    d = cops.add(b2, cops.neg(a2))
+    for _ in range(kw.bit_length() - 1):
+        d = cops.double(d)
+    return _map(cops.add(d, a3), lambda a: a[..., None])
 
 
 def _tree_reduce_last(cops: C.CurveOps, pts: JacobianPoint) -> JacobianPoint:
@@ -339,11 +571,27 @@ def msm(
     else:
         digits, negs = window_digits(scalars, window_bits), None
     num_windows = digits.shape[0]
-    buckets = _bucket_sums(cops, digits, points, num_buckets, steps, negs)
-    if signed:
-        wins = _weighted_reduce_signed(cops, buckets, window_bits)
+    lanes = n2 // steps
+    covered = num_buckets - 1 if signed else num_buckets
+    fold_path = (
+        _fused(cops)
+        and lanes % 128 == 0
+        and covered % 128 == 0
+        and 2 * num_windows <= 128
+    )
+    if fold_path:
+        bucket_a, acc_last, d_t = _bucket_sums_fused(
+            cops, digits, points, num_buckets, steps, negs, parts=True
+        )
+        b1, b2 = _fold_trailing_fused(cops, acc_last, d_t[-1], d_t[0], num_buckets)
+        buckets = cops.add(cops.add(bucket_a, b1), b2)
+        wins = _weighted_fold_fused(cops, buckets, num_buckets, signed)
     else:
-        wins = _weighted_reduce(cops, buckets, window_bits)  # coords (*E, W, 1)
+        buckets = _bucket_sums(cops, digits, points, num_buckets, steps, negs)
+        if signed:
+            wins = _weighted_reduce_signed(cops, buckets, window_bits)
+        else:
+            wins = _weighted_reduce(cops, buckets, window_bits)  # coords (*E, W, 1)
 
     # Horner from the most significant window down:
     # acc = W_last; for w = last-1..0: acc = 2^c * acc + W_w

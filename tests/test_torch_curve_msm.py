@@ -79,8 +79,12 @@ def test_to_affine_matches_hostmath(name):
 
 
 def test_other_backends_raise():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        C.curve_ops_for(TH.BN254_G1, "fused")
+    """The RNS backends are not ported; "fused" is, and the default stays "limb"."""
+    for backend in ("rns_fused", "rns_hybrid"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            C.curve_ops_for(TH.BN254_G1, backend)
+    assert C.curve_ops_for(TH.BN254_G1, "fused").backend == "fused"
+    assert C.curve_ops_for(TH.BN254_G1).backend == "limb"
 
 
 @pytest.mark.parametrize("window_bits,scalar_bits", [(13, 254), (8, 254), (16, 255), (5, 0)])

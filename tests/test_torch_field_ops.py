@@ -148,9 +148,11 @@ def test_predicates_and_batch_inv():
 
 
 def test_kernel_constants_match_fields():
-    """The .cu source's constant tables (p, 2p as 32-bit words, n0' = −p^-1
-    mod 2^32) are the fields' own; and the kernel's field ids are mapped."""
-    src = Path(K.SOURCE).read_text()
+    """The constant tables of the kernels' shared header (p, 2p and R mod p
+    as 32-bit words, n0' = −p^-1 mod 2^32) are the fields' own; and the
+    kernel's field ids are mapped."""
+    src = Path(K.HEADER).read_text()
+    assert '#include "field_ops.cuh"' in Path(K.SOURCE).read_text()
     structs = dict(re.findall(r"struct (\w+) \{(.*?)\n\};", src, re.S))
     names = {"Bn254Fr": TF.BN254_FR, "Bn254Fq": TF.BN254_FQ,
              "Bls12381Fr": TF.BLS12_381_FR, "Bls12381Fq": TF.BLS12_381_FQ}
@@ -162,7 +164,8 @@ def test_kernel_constants_match_fields():
         assert n0 == (-pow(spec.modulus, -1, 1 << 32)) % (1 << 32)
         tables = re.findall(r"v\[\d+\] = \{(.*?)\};", body, re.S)
         words = [[int(w.strip().rstrip("u"), 16) for w in t.split(",")] for t in tables]
-        for value, ws in zip((spec.modulus, 2 * spec.modulus), words):
+        assert len(words) == 3
+        for value, ws in zip((spec.modulus, 2 * spec.modulus, spec.R), words):
             assert len(ws) == (L + 1) // 2
             assert sum(w << (32 * i) for i, w in enumerate(ws)) == value
         assert spec.name in K.KERNEL_FIELDS

@@ -3,15 +3,17 @@
 The 31-constraint squaring chain of `__graft_entry__._dryrun_circuit`
 (domain 64, 256 MSM lanes) is set up on the host by the JAX package; a JAX
 `DeviceProver(backend="limb")` is built (nothing is compiled) and its
-`save_cache` state goes through the port's `DeviceProver.from_numpy_state`.
-The port's h(x), scalars and proofs are then held against the JAX package's
-host references: `_h_coefficients_host`, `groth16.prove(..., backend="host")`
-and both packages' `groth16.verify`. Tolerance: none (exact arithmetic; the
+`save_cache` state goes through the port's `DeviceProver.from_numpy_state`,
+on the limb backend as recorded and on the fused backend with its meta
+changed. The port's h(x), scalars and proofs are then held against the JAX
+package's host references: `_h_coefficients_host`,
+`groth16.prove(..., backend="host")` and both packages' `groth16.verify`. Tolerance: none (exact arithmetic; the
 proofs are compared as affine points).
 """
 
 import functools
 import io
+import json
 
 import numpy as np
 import pytest
@@ -77,14 +79,24 @@ def test_state_loads_and_round_trips(tmp_path):
     np.testing.assert_array_equal(F.to_numpy(back.lh_pts.y), state["lh_y"])
 
 
+def _with_meta(state, **changes):
+    """The prover state with its JSON meta updated."""
+    meta = json.loads(bytes(state["meta"]).decode())
+    meta.update(changes)
+    return {**state, "meta": np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)}
+
+
 def test_fused_backend_and_missing_card_raise():
+    """A meta recording "fused" (as the production cache does) loads on the
+    fused backend with no override; an RNS backend is not ported and raises;
+    so does asking for the card where there is none."""
     *_, state = _slice()
-    fused = dict(state)
-    meta = bytes(state["meta"]).decode().replace('"backend": "limb"', '"backend": "fused"')
-    fused["meta"] = np.frombuffer(meta.encode(), dtype=np.uint8)
-    with pytest.raises(NotImplementedError):
-        DeviceProver.from_numpy_state(fused, device="cpu")
-    DeviceProver.from_numpy_state(fused, backend="limb", device="cpu")
+    prover = DeviceProver.from_numpy_state(_with_meta(state, backend="fused"), device="cpu")
+    assert prover.g1.backend == prover.g2.backend == "fused"
+    assert hasattr(prover.g1, "run_fold_columns")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DeviceProver.from_numpy_state(_with_meta(state, backend="rns_fused"), device="cpu")
+    assert DeviceProver.from_numpy_state(state, backend="limb", device="cpu").g1.backend == "limb"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DeviceProver.from_numpy_state(state)
@@ -137,6 +149,32 @@ def test_random_proof_verifies_under_both_packages():
     port_vk = TKIO.vk_from_bytes(JKIO.vk_to_bytes(vk))
     assert TG.verify(port_vk, proof, [digest])
     assert not TG.verify(port_vk, proof, [digest + 1])
+
+
+def _fused_prover():
+    """The test prover on the fused backend with window 8 and 2 column steps:
+    R = 128 lanes and 128 covered buckets, so every MSM takes the fold path."""
+    *_, state = _slice()
+    return DeviceProver.from_numpy_state(
+        _with_meta(state, backend="fused", window_bits=8, column_steps=2), device="cpu"
+    )
+
+
+def test_fused_proof_with_zero_randomness_equals_host_prove():
+    matrices, assignment, _, pk, _, _ = _slice()
+    proof = _fused_prover().prove(assignment, 0, 0)
+    want = JG.prove(pk, matrices, assignment, 0, 0, backend="host")
+    assert _as_tuple(proof) == _as_tuple(want)
+
+
+def test_fused_random_proof_verifies_under_both_packages():
+    _, assignment, digest, _, vk, _ = _slice()
+    rng = np.random.default_rng(32)
+    r, s = (int.from_bytes(rng.bytes(32), "little") % JPR.BN254_PAIRING.g1.scalar_field.modulus
+            for _ in range(2))
+    proof = _fused_prover().prove(assignment, r, s)
+    assert JG.verify(vk, JG.Proof(*_as_tuple(proof)), [digest])
+    assert TG.verify(TKIO.vk_from_bytes(JKIO.vk_to_bytes(vk)), proof, [digest])
 
 
 def test_production_vk_reads_like_the_jax_package():

@@ -36,12 +36,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for name in ("manta_tpu_torch.ops.field_ops", "manta_tpu_torch.ops.kernels.field_kernels",
+                 "manta_tpu_torch.ops.kernels.point_kernels", "manta_tpu_torch.ops.kernels.build",
                  "manta_tpu_torch.ops.msm", "manta_tpu_torch.models.groth16_device"):
         assert name in report["modules"]
 
 
 def test_no_port_source_mentions_jax_imports():
-    for path in (ROOT / "manta_tpu_torch").rglob("*.py"):
+    sources = [*(ROOT / "manta_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+               *(ROOT / "tools").glob("torch_*.py")]
+    for path in sources:
         for line in path.read_text().splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
@@ -60,8 +63,9 @@ def test_cuda_entry_points_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         F.resolve_device()
+    for backend in ("limb", "fused"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            C.curve_ops_for(hostmath.BN254_G1, backend).encode_points([hostmath.BN254_G1.generator])
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        C.curve_ops_for(hostmath.BN254_G1).encode_points([hostmath.BN254_G1.generator])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        DeviceProver.from_cache(str(ROOT / ".bench_prover_pt.npz"), backend="limb")
+        DeviceProver.from_cache(str(ROOT / ".bench_prover_pt.npz"))
     assert F.resolve_device("cpu").type == "cpu"

@@ -1,0 +1,287 @@
+"""PyTorch port: the fused curve kernels' plain versions vs the JAX package.
+
+`ops/kernels/point_kernels.py` holds the CUDA point-op, column and fold
+kernels and their plain versions; on CPU tensors the public functions take
+the plain versions. They are held here, bit for bit on the raw limb arrays,
+against the JAX package's Pallas kernels (`manta_tpu/ops/pallas/
+point_kernels.py`) in interpret mode on the TOY curve, against the port's
+limb `CurveOps` on BN254 and BLS12-381 G1/G2, and, after `decode_points`,
+against `hostmath`. Inputs come from numpy seeds and include the edge lanes
+P+P, P+(−P), P+∞, ∞+Q and ∞+∞. Tolerance: none (exact integers).
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from manta_tpu.ops.curve import JacobianPoint as JPoint
+from manta_tpu.ops.pallas import point_kernels as JPK
+from manta_tpu.utils import hostmath as JH
+from manta_tpu_torch.ops import curve as C
+from manta_tpu_torch.ops import field_ops as F
+from manta_tpu_torch.ops.curve import JacobianPoint
+from manta_tpu_torch.ops.kernels import build as B
+from manta_tpu_torch.ops.kernels import point_kernels as PK
+from manta_tpu_torch.utils import hostmath as TH
+
+# small tensors: one intra-op thread per test worker is all they use well
+torch.set_num_threads(1)
+
+CURVES = {
+    "bn254_g1": (JH.BN254_G1, TH.BN254_G1),
+    "bn254_g2": (JH.BN254_G2, TH.BN254_G2),
+    "bls12_381_g1": (JH.BLS12_381_G1, TH.BLS12_381_G1),
+    "bls12_381_g2": (JH.BLS12_381_G2, TH.BLS12_381_G2),
+}
+
+
+def host_points(curve, rng, n, p_inf=0.1):
+    """n points from 8 random multiples of G (repeats give P+P lanes), a
+    share of them at infinity."""
+    r = curve.scalar_field.modulus
+    base = [curve.scalar_mul(int(k) % r or 1, curve.generator) for k in rng.integers(1, 2**62, 8)]
+    return [None if rng.random() < p_inf else base[int(i)] for i in rng.integers(0, 8, n)]
+
+
+def edge_pairs(curve, rng, n):
+    """(P, Q) lane lists: P+P, P+(−P), P+∞, ∞+Q, ∞+∞, then random lanes."""
+    ps, qs = host_points(curve, rng, n, 0.0), host_points(curve, rng, n)
+    ps[3] = ps[4] = None
+    qs[:5] = [ps[0], curve.neg(ps[1]), None, qs[5], None]
+    return ps, qs
+
+
+def _tensors(arrs):
+    return JacobianPoint(*(F.as_tensor(a, "cpu") for a in arrs))
+
+
+def _numpy(pt):
+    return [F.to_numpy(c) for c in pt]
+
+
+def _assert_equal(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(F.to_numpy(g), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# TOY: the plain versions against the JAX package's interpret-mode kernels
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _toy_operands():
+    """Jacobian P (Z != 1), affine Q and Jacobian 2Q over 100 lanes with the
+    edge lanes, as numpy uint32 coordinates."""
+    rng = np.random.default_rng(51)
+    curve = JH.TOY_G1
+    ps, qs = edge_pairs(curve, rng, 100)
+    limb = C.curve_ops_for(TH.TOY_G1, "limb")
+    p = limb.double(limb.encode_points(ps, "cpu"))
+    q = limb.encode_points(qs, "cpu")
+    return _numpy(p), _numpy(q), _numpy(limb.double(q))
+
+
+@pytest.mark.parametrize("which", ["add", "madd", "double"])
+def test_toy_point_ops_equal_jax_kernels(which):
+    p, q_aff, q_jac = _toy_operands()
+    q = q_aff if which == "madd" else q_jac
+    tp, tq = _tensors(p), _tensors(q)
+    jp, jq = JPoint(*map(jnp.asarray, p)), JPoint(*map(jnp.asarray, q))
+    if which == "double":
+        got, want = PK.fused_double(TH.TOY_G1, tp), JPK.fused_double(JH.TOY_G1, jp)
+    else:
+        got = getattr(PK, f"fused_{which}")(TH.TOY_G1, tp, tq)
+        want = getattr(JPK, f"fused_{which}")(JH.TOY_G1, jp, jq)
+    _assert_equal(got, want)
+
+
+def _toy_stream(rng, K, R, jacobian):
+    """(K, L, R) TOY coordinates of random points, numpy uint32."""
+    limb = C.curve_ops_for(TH.TOY_G1, "limb")
+    pts = limb.encode_points(host_points(JH.TOY_G1, rng, K * R, 0.0), "cpu")
+    if jacobian:
+        pts = limb.double(pts)
+    return [F.to_numpy(c).reshape(-1, R, K).transpose(2, 0, 1).copy() for c in pts]
+
+
+def _masks(rng, K, R):
+    """Random head / qinf masks (K, R) plus an all-head row and an all-qinf column."""
+    head = rng.random((K, R)) < 0.3
+    qinf = rng.random((K, R)) < 0.1
+    head[3] = True
+    qinf[:, 5] = True
+    return head, qinf
+
+
+def test_toy_accumulate_columns_equal_jax_kernel():
+    rng = np.random.default_rng(52)
+    K, R = 8, 128
+    px, py, _ = _toy_stream(rng, K, R, jacobian=False)
+    head, qinf = _masks(rng, K, R)
+    got = PK.accumulate_columns(
+        TH.TOY_G1, F.as_tensor(px, "cpu"), F.as_tensor(py, "cpu"),
+        torch.from_numpy(qinf), torch.from_numpy(head),
+    )
+    want = JPK.accumulate_columns(
+        JH.TOY_G1, jnp.asarray(px), jnp.asarray(py), jnp.asarray(qinf), jnp.asarray(head)
+    )
+    _assert_equal(got, want)
+
+
+def test_toy_fold_columns_equal_jax_kernel():
+    rng = np.random.default_rng(53)
+    K, R = 8, 128
+    q = _toy_stream(rng, K, R, jacobian=True)
+    head, _ = _masks(rng, K, R)
+    got_a, got_b = PK.fold_columns(TH.TOY_G1, *(F.as_tensor(c, "cpu") for c in q),
+                                   torch.from_numpy(head))
+    want_a, want_b = JPK.fold_columns(JH.TOY_G1, *map(jnp.asarray, q), jnp.asarray(head))
+    _assert_equal(got_a, want_a)
+    _assert_equal(got_b, want_b)
+
+
+# ---------------------------------------------------------------------------
+# The four production curves: the limb formulas and hostmath
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_fused_point_ops_equal_limb_curve_ops_and_hostmath(name):
+    jcurve, tcurve = CURVES[name]
+    rng = np.random.default_rng(54)
+    ps, qs = edge_pairs(jcurve, rng, 12)
+    limb = C.curve_ops_for(tcurve, "limb")
+    fused = C.curve_ops_for(tcurve, "fused")
+    assert isinstance(fused, PK.FusedCurveOps) and fused.backend == "fused"
+    pa, qa = limb.encode_points(ps, "cpu"), limb.encode_points(qs, "cpu")
+    p2, q2 = limb.double(pa), limb.double(qa)
+    cases = [
+        ("add", (p2, q2), [jcurve.add(jcurve.double(a), jcurve.double(b)) for a, b in zip(ps, qs)]),
+        ("add", (pa, pa), [jcurve.double(a) for a in ps]),
+        ("madd", (p2, qa), [jcurve.add(jcurve.double(a), b) for a, b in zip(ps, qs)]),
+        ("madd", (pa, pa), [jcurve.double(a) for a in ps]),
+        ("double", (p2,), [jcurve.double(jcurve.double(a)) for a in ps]),
+    ]
+    for which, args, want in cases:
+        got = getattr(fused, which)(*args)
+        _assert_equal(got, _numpy(getattr(limb, which)(*args)))
+        assert fused.decode_points(got) == want, which
+
+
+@pytest.mark.parametrize("name", ["bn254_g1", "bls12_381_g2"])
+def test_plain_columns_and_fold_match_hostmath(name):
+    """Every step of the column and fold streams, decoded, against running
+    sums on the host."""
+    jcurve, tcurve = CURVES[name]
+    rng = np.random.default_rng(55)
+    K, R = 5, 6
+    pts = host_points(jcurve, rng, K * R)
+    head, _ = _masks(rng, K, R)
+    limb = C.curve_ops_for(tcurve, "limb")
+    enc = limb.encode_points(pts, "cpu")
+
+    def stream(c):  # lane j's chunk is points [j*K, (j+1)*K)
+        return c.reshape(*c.shape[:-1], R, K).movedim(-1, 0).contiguous()
+
+    qinf = np.array([[pts[j * K + k] is None for j in range(R)] for k in range(K)])
+    cols = PK.accumulate_columns(tcurve, stream(enc.x), stream(enc.y),
+                                 torch.from_numpy(qinf), torch.from_numpy(head))
+    fa, fb = PK.fold_columns(tcurve, *(stream(c) for c in limb.double(enc)),
+                             torch.from_numpy(head))
+    for j in range(R):
+        acc = a = b = None
+        for k in range(K):
+            q = pts[j * K + k]
+            acc = q if head[k, j] else jcurve.add(acc, q)
+            a = jcurve.double(q) if head[k, j] else jcurve.add(a, jcurve.double(q))
+            b = jcurve.add(b, a)
+            lane = (k, ..., j)
+            for got, want in ((cols, acc), (fa, a), (fb, b)):
+                assert limb.decode_points(JacobianPoint(*(c[lane][..., None] for c in got))) == [want]
+
+
+@pytest.mark.parametrize("name", ["bn254_g1", "bls12_381_g2"])
+def test_limb_columns_and_fold_equal_plain(name):
+    """The column and fold loops over the limb `CurveOps` (the reference
+    that `chip_smoke.py` holds the kernels against at the prover's shapes)
+    equal the plain versions, edge masks included."""
+    jcurve, tcurve = CURVES[name]
+    rng = np.random.default_rng(57)
+    K, R = 6, 7
+    limb = C.curve_ops_for(tcurve, "limb")
+    enc = limb.encode_points(host_points(jcurve, rng, K * R), "cpu")
+    head, qinf = _masks(rng, K, R)
+    head, qinf = torch.from_numpy(head), torch.from_numpy(qinf)
+
+    def stream(c):
+        return c.reshape(*c.shape[:-1], R, K).movedim(-1, 0).contiguous()
+
+    px, py = stream(enc.x), stream(enc.y)
+    _assert_equal(PK.limb_accumulate_columns(tcurve, px, py, qinf, head),
+                  _numpy(PK.plain_accumulate_columns(tcurve, px, py, qinf, head)))
+    q = [stream(c) for c in limb.double(enc)]
+    for got, want in zip(PK.limb_fold_columns(tcurve, *q, head),
+                         PK.plain_fold_columns(tcurve, *q, head)):
+        _assert_equal(got, _numpy(want))
+
+
+# ---------------------------------------------------------------------------
+# Wrappers and build
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_reject_bad_input():
+    """No fallback: only CPU tensors take the plain version; shapes are checked."""
+    limb = C.curve_ops_for(TH.BN254_G1, "limb")
+    p = limb.encode_points(host_points(JH.BN254_G1, np.random.default_rng(56), 4), "cpu")
+    meta = JacobianPoint(*(c.to("meta") for c in p))
+    with pytest.raises(ValueError, match="device"):
+        PK.fused_double(TH.BN254_G1, meta)
+    with pytest.raises(ValueError, match="different devices"):
+        PK.fused_add(TH.BN254_G1, p, meta)
+    with pytest.raises(ValueError, match="one shape"):
+        PK.fused_add(TH.BN254_G1, p, JacobianPoint(*(c[..., :2] for c in p)))
+    stream = p.x.reshape(16, 2, 2).movedim(1, 0).contiguous()  # (K=2, L, R=2)
+    with pytest.raises(ValueError, match="masks"):
+        PK.accumulate_columns(TH.BN254_G1, stream, stream, torch.zeros(2, 3, dtype=torch.bool),
+                              torch.zeros(2, 2, dtype=torch.bool))
+    assert PK.library("bn254_g2").units == tuple(
+        ("MANTA_CURVE=1", f"MANTA_KERNEL={k}") for k in range(5))
+
+
+def test_library_digest_covers_sources_and_headers(tmp_path, monkeypatch):
+    """A library's file name changes with its source, each header it
+    includes, and its defines: an edited header never loads a stale build,
+    and a header that a library does not include leaves it as it is."""
+    import re
+
+    from manta_tpu_torch.ops.kernels import field_kernels as FK
+
+    for f in B.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(B, "CSRC", tmp_path)
+    lib = PK.library("bn254_g1")
+    before, field_before = lib.path(), FK.LIBRARY.path()
+    assert before == PK.library("bn254_g1").path() != PK.library("bn254_g2").path()
+    assert lib.report_path().parent == before.parent != lib.report_path()
+    header = tmp_path / "field_ops.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert lib.path() != before and FK.LIBRARY.path() != field_before
+    before, field_before = lib.path(), FK.LIBRARY.path()
+    header = tmp_path / "point_ops.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert lib.path() != before and FK.LIBRARY.path() == field_before
+
+    def included(name, seen):  # the csrc headers `name` includes, transitively
+        for inc in re.findall(r'#include "([^"]+)"', (tmp_path / name).read_text()):
+            if inc not in seen:
+                seen.add(inc)
+                included(inc, seen)
+        return seen
+
+    for library in (FK.LIBRARY, lib):
+        assert set(library.headers) == included(library.source, set())

@@ -1,14 +1,15 @@
 """Where one production PrivateTransfer proof spends its time on the GPU.
 
-    python3 tools/torch_profile_prove.py [--out PATH]
+    python3 tools/torch_profile_prove.py [--backend fused|limb] [--out PATH]
 
-Loads `.bench_prover_pt.npz` into the port's `DeviceProver` (limb backend,
-CUDA), proves `assignments[0]` of `.bench_prover_pt_aux.json` once to warm up,
-then proves it again under `torch.profiler` and prints: the wall time of each
+Loads `.bench_prover_pt.npz` into the port's `DeviceProver` (CUDA) on the
+curve backend asked for (default: fused, the backend the cache records),
+proves `assignments[0]` of `.bench_prover_pt_aux.json` once to warm up, then
+proves it again under `torch.profiler` and prints: the wall time of each
 phase, the device's busy time (sum of CUDA kernel times) and idle share of
-the proof's wall time, the launches of each field-kernel op, and the kernels
-that take the most device time. With --out, the full `key_averages` table is
-written to PATH.
+the proof's wall time, the launches of each field-kernel op and point kernel,
+and the kernels that take the most device time. With --out, the full
+`key_averages` table is written to PATH.
 Needs one CUDA device.
 """
 
@@ -28,6 +29,8 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backend", default="fused", choices=("fused", "limb"),
+                    help="curve backend of the MSMs (default: fused)")
     ap.add_argument("--out", help="write the full key_averages table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -38,10 +41,11 @@ def main() -> int:
     from manta_tpu_torch.models import groth16 as G
     from manta_tpu_torch.models.groth16_device import DeviceProver
     from manta_tpu_torch.ops.kernels import field_kernels as K
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
     from manta_tpu_torch.utils import keyio
 
     prover = DeviceProver.from_cache(
-        os.path.join(ROOT, ".bench_prover_pt.npz"), backend="limb", device="cuda"
+        os.path.join(ROOT, ".bench_prover_pt.npz"), backend=args.backend, device="cuda"
     )
     with open(os.path.join(ROOT, ".bench_prover_pt_aux.json")) as f:
         aux = json.load(f)
@@ -52,6 +56,7 @@ def main() -> int:
     assert G.verify(vk, prover.prove(assignment, 7, 9), public)  # warm-up
 
     K.reset_launches()
+    PK.reset_launches()
     timings = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -60,10 +65,11 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     assert G.verify(vk, proof, public)
-    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"device: {torch.cuda.get_device_name(0)}; backend {args.backend}")
     print(f"proof wall time under the profiler: {wall:.6f} s")
     print("phases (s): " + json.dumps(timings))
     print(f"field-kernel launches in the proof: {dict(K.LAUNCHES)}")
+    print(f"point-kernel launches in the proof: {dict(PK.LAUNCHES)}")
 
     events = prof.key_averages()
     device_us = 0.0
