@@ -20,27 +20,46 @@ phase catches its own failure:
    and G2: point ops over 1000 lanes with the lanes P+P, P+(-P), P+inf,
    inf+Q and inf+inf; column and fold at K = 16, R = 1024 with random head
    and qinf masks plus an all-head row and an all-infinity column;
-5. MSMs on the card: BN254 G1 over 65536 points (i+1)·G (window 13, 128
+5. the same for the RNS kernels (point op, column, hybrid column) against
+   their plain versions, bit for bit, on the four curves, and the RNS
+   kernels' table-free zero test against the 2^13-row zero-class table on
+   the values k·p and k·p ± 1, k < 8192;
+6. MSMs on the card: BN254 G1 over 65536 points (i+1)·G (window 13, 128
    column steps: the fold path) and over 4096 points (32 lanes: no fold
-   path) on the fused backend, and 4096 points on the limb backend,
-   each checked against (sum (i+1)·s_i mod r)·G as `bench.py` checks;
-6. the main path: the production PrivateTransfer prover from
-   `.bench_prover_pt.npz` on the backend its meta records (fused), two
-   proofs (r, s) = (7, 9) and (2, 3), each verified by the host pairing
-   against `.bench_prover_pt_vk.bin`, with the launch count of every kernel
-   read around that run; the point kernels' calls of the first proof are
-   recorded, each (kernel, curve, shape) held bit for bit against the same
-   formulas through the limb `CurveOps` on the card on the recorded inputs
-   (and at the shape its `kernels` entry reports, against the plain version
-   too), then timed at that shape beside its bound;
-7. one proof on the limb backend, verified, its launches read around it;
-8. one JSON line describing each ported kernel, then the card's
+   path) on the fused backend, and 4096 points on the limb backend; BN254
+   G1 over 65536 points on "rns_fused" and "rns_hybrid" and BLS12-381 G1
+   over 65536 points on "rns_hybrid" (window 13); each checked against
+   (sum (i+1)·s_i mod r)·G as `bench.py` checks;
+7. the production PrivateTransfer prover from `.bench_prover_pt.npz` on the
+   backend its meta records (fused), two proofs (r, s) = (7, 9) and (2, 3),
+   each verified by the host pairing against `.bench_prover_pt_vk.bin`,
+   with the launch count of every kernel read around that run; the point
+   kernels' calls of the first proof are recorded, each (kernel, curve,
+   shape) held bit for bit against the same formulas through the limb
+   `CurveOps` on the card on the recorded inputs (and at the shape its
+   `kernels` entry reports, against the plain version too), then timed at
+   that shape beside its bound;
+8. one proof on the limb backend, verified, its launches read around it;
+9. the main path of the RNS slice: the same prover on "rns_hybrid" (its
+   limb points as they are), two proofs verified, launches read around
+   them; every RNS-kernel call of the first proof recorded, held bit for bit
+   against its plain version on the recorded inputs and timed beside its
+   bound; the column kernel timed at the prover's G1 shape on the same
+   points converted to RNS, and held against the hybrid kernel there;
+10. the port's entry point: `torch_entry.dryrun()` ("rns_fused", the
+   Poseidon-preimage circuit) proves and verifies, launches read around it;
+   every RNS-kernel call of that proof (point ops and columns, G1 and G2)
+   recorded, held bit for bit against its plain version on the recorded
+   inputs and timed; its largest G1 column call is the column kernel's
+   reported shape;
+11. one JSON line describing each ported kernel, then the card's
    `nvidia-smi` line, then the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import random
 import subprocess
@@ -66,6 +85,12 @@ POINT_REPLACES = {
     "point": "manta_tpu/ops/pallas/point_kernels.py:501",
     "columns": "manta_tpu/ops/pallas/point_kernels.py:603",
     "fold": "manta_tpu/ops/pallas/point_kernels.py:711",
+}
+RNS_SOURCE = "manta_tpu_torch/csrc/rns_kernels.cu"
+RNS_REPLACES = {
+    "point": "manta_tpu/ops/pallas/rns_kernels.py:739",
+    "columns": "manta_tpu/ops/pallas/rns_kernels.py:511",
+    "hybrid": "manta_tpu/ops/pallas/rns_kernels.py:599",
 }
 
 
@@ -247,13 +272,16 @@ def build_kernels() -> dict:
     from manta_tpu_torch.ops.kernels import build as B
     from manta_tpu_torch.ops.kernels import field_kernels as FK
     from manta_tpu_torch.ops.kernels import point_kernels as PK
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
-    libs = [FK.LIBRARY, *PK.LIBRARIES]
+    libs = [FK.LIBRARY, *PK.LIBRARIES, *RK.LIBRARIES]
     t0 = time.perf_counter()
     paths = B.build(libs, verbose=True)
-    log(f"  built {len(paths)} libraries in {time.perf_counter() - t0:.3f} s: "
+    seconds = time.perf_counter() - t0
+    log(f"  built {len(paths)} libraries in {seconds:.3f} s: "
         + ", ".join(os.path.relpath(p, ROOT) for p in paths))
-    report = {"field": {}, "point": {}, "columns": {}, "fold": {}}
+    report = {"field": {}, "point": {}, "columns": {}, "fold": {}, "rns_point": {},
+              "rns_columns": {}, "rns_hybrid": {}, "seconds": seconds}
     texts = {what: text for lib in libs for what, text in B.reports(lib).items()}
     if len(texts) != sum(len(lib.units) for lib in libs):
         raise AssertionError(f"compiler reports missing: have {sorted(texts)}")
@@ -265,12 +293,19 @@ def build_kernels() -> dict:
         if what.startswith("field_kernels"):
             report["field"] = row
             continue
+        if what.startswith("rns_kernels"):
+            curve = what.split()[0].removeprefix("rns_kernels-")
+            kernel = RK.KERNELS[int(what.rsplit("=", 1)[1])]
+            kind = "rns_point" if kernel in ("add", "madd", "double") else f"rns_{kernel}"
+            report[kind][f"{curve} {kernel}" if kind == "rns_point" else curve] = row
+            continue
         curve = what.split()[0].removeprefix("point_kernels-")
         kernel = PK.KERNELS[int(what.rsplit("=", 1)[1])]
         kind = "point" if kernel in ("add", "madd", "double") else kernel
         report[kind][f"{curve} {kernel}" if kind == "point" else curve] = row
     for kind, rows in report.items():
-        log(f"  {kind}: registers / spill bytes {json.dumps(rows)}")
+        if kind != "seconds":
+            log(f"  {kind}: registers / spill bytes {json.dumps(rows)}")
     return report
 
 
@@ -348,7 +383,74 @@ def check_point_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: MSMs
+# phase 5: RNS kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_rns_kernels() -> dict:
+    from manta_tpu_torch.ops import curve as C
+    from manta_tpu_torch.ops import rns as R
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
+
+    rng = np.random.default_rng(SEED + 2)
+    max_err = {"point": 0, "columns": 0, "hybrid": 0}
+
+    def hold(kind, what, got, want):
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        max_err[kind] = max(max_err[kind], err)
+        if err:
+            raise AssertionError(f"{what} kernel != plain: max |diff| {err}")
+
+    for name in CURVE_NAMES:
+        curve = _curve(name)
+        cops = C.curve_ops_for(curve, "rns_fused")
+        ps, qs = host_points(curve, rng, 1000, 0.0), host_points(curve, rng, 1000)
+        ps[3] = ps[4] = None  # P+P, P+(-P), P+inf, inf+Q, inf+inf
+        qs[:5] = [ps[0], curve.neg(ps[1]), None, qs[5], None]
+        pa, qa = cops.encode_points(ps, "cuda"), cops.encode_points(qs, "cuda")
+        p2 = RK.plain_rns_point_op(curve, "double", pa)
+        for which, args in (("add", (p2, qa)), ("add", (pa, pa)), ("madd", (p2, qa)),
+                            ("madd", (pa, pa)), ("double", (p2,))):
+            hold("point", f"{name} RNS {which}", getattr(RK, f"rns_{which}")(curve, *args),
+                 RK.PLAIN[which](curve, *args))
+        K, R_ = 16, 1024
+        flat = host_points(curve, rng, K * R_)
+        head = torch.from_numpy(rng.random((K, R_)) < 0.3).cuda()
+        qinf = torch.from_numpy(rng.random((K, R_)) < 0.1).cuda()
+        head[3] = True
+        qinf[:, 5] = True
+
+        def stream(c):  # lane j owns points [j*K, (j+1)*K)
+            return c.reshape(*c.shape[:-1], R_, K).movedim(-1, 0).contiguous()
+
+        for kind, backend, fn in (("columns", "rns_fused", RK.rns_accumulate_columns),
+                                  ("hybrid", "rns_hybrid", RK.hybrid_accumulate_columns)):
+            enc = C.curve_ops_for(curve, backend).encode_points(flat, "cuda")
+            px, py = stream(enc.x), stream(enc.y)
+            hold(kind, f"{name} RNS {kind}", fn(curve, px, py, qinf, head),
+                 RK.PLAIN[kind](curve, px, py, qinf, head))
+        log(f"  {name}: RNS point add / madd / double over 1000 lanes, column and hybrid "
+            f"column at K={K}, R={R_}: bit-equal to the plain versions")
+        if not curve.is_ext:
+            spec = R.default_spec(curve.field)
+            p = curve.field.modulus
+            vals = [k * p + d for k in range(RK.N_ZERO_CLASSES + 2) for d in (-1, 0, 1)
+                    if k * p + d >= 0]
+            a = torch.tensor([[v % m for v in vals] for m in spec.moduli], dtype=torch.int32,
+                             device="cuda")
+            got = RK.rns_is_zero(curve, a)
+            want = RK.table_is_zero(spec, a)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or int(want.sum()) != RK.N_ZERO_CLASSES:
+                raise AssertionError(f"{name}: the table-free zero test disagrees with the table")
+            log(f"  {name}: table-free zero test = the 2^13-row table on {len(vals)} values "
+                f"k·p, k·p ± 1 ({int(got.sum())} zero)")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 6: MSMs
 # ---------------------------------------------------------------------------
 
 
@@ -403,10 +505,15 @@ def check_msms():
         raise AssertionError(f"the fused MSM ran field-kernel launches {glue}")
     check_msm(fused, pts[:4096], 128, "BN254 G1 MSM n=4096, fused, 32 lanes (no fold path)")
     check_msm(limb, pts[:4096], 128, "BN254 G1 MSM n=4096, limb")
+    for backend in ("rns_fused", "rns_hybrid"):
+        check_msm(C.curve_ops_for(curve, backend), pts, 128, f"BN254 G1 MSM n=65536, {backend}")
+    bls = hostmath.BLS12_381_G1
+    check_msm(C.curve_ops_for(bls, "rns_hybrid"), multiples_of_g(bls, 65536), 128,
+              "BLS12-381 G1 MSM n=65536, rns_hybrid")
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: the production PrivateTransfer proofs
+# phases 7 to 9: the production PrivateTransfer proofs
 # ---------------------------------------------------------------------------
 
 
@@ -434,16 +541,19 @@ def load_production(backend=None):
 def reset_counts():
     from manta_tpu_torch.ops.kernels import field_kernels as FK
     from manta_tpu_torch.ops.kernels import point_kernels as PK
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
     FK.reset_launches()
     PK.reset_launches()
+    RK.reset_launches()
 
 
 def read_counts() -> dict:
     from manta_tpu_torch.ops.kernels import field_kernels as FK
     from manta_tpu_torch.ops.kernels import point_kernels as PK
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
-    return {"field": dict(FK.LAUNCHES), "point": dict(PK.LAUNCHES)}
+    return {"field": dict(FK.LAUNCHES), "point": dict(PK.LAUNCHES), "rns": dict(RK.LAUNCHES)}
 
 
 def prove_and_verify(prover, aux, vk, idx, r, s):
@@ -452,42 +562,51 @@ def prove_and_verify(prover, aux, vk, idx, r, s):
     assignment = [int(x) for x in aux["assignments"][idx]]
     public = [int(x) for x in aux["publics"][idx]]
     timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     proof = prover.prove(assignment, r, s, timings=timings)
     wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     t1 = time.perf_counter()
     if not G.verify(vk, proof, public):
         raise AssertionError(f"proof of assignment {idx} failed to verify")
     parts = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
     log(f"  proof {idx} (r={r}, s={s}): {wall:.3f} s [{parts}] s; "
-        f"verified by the host pairing in {time.perf_counter() - t1:.3f} s")
+        f"verified by the host pairing in {time.perf_counter() - t1:.3f} s; device memory "
+        f"allocated at the peak of the proof, above the prover's state: {peak:.3f} GiB")
 
 
 class Recorder:
-    """Wraps the point-kernel wrappers so that a run keeps the arguments of
-    the first call of each (kernel, curve, shape): the calls to time."""
+    """Wraps the point-kernel wrappers (or, with `rns`, the RNS-kernel
+    wrappers) so that a run keeps the arguments of the first call of each
+    (kernel, curve, shape): the calls to time."""
 
-    NAMES = ("_point_op", "accumulate_columns", "fold_columns")
-
-    def __init__(self):
+    def __init__(self, rns=False):
         from manta_tpu_torch.ops.kernels import point_kernels as PK
+        from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
-        self.PK, self.calls, self.saved = PK, {}, {}
+        self.mod = RK if rns else PK
+        self.names = ("_point_op", "_columns") if rns else (
+            "_point_op", "accumulate_columns", "fold_columns")
+        self.calls, self.saved = {}, {}
 
     def __enter__(self):
-        for name in self.NAMES:
-            fn = self.saved[name] = getattr(self.PK, name)
-            setattr(self.PK, name, self._wrap(name, fn))
+        for name in self.names:
+            fn = self.saved[name] = getattr(self.mod, name)
+            setattr(self.mod, name, self._wrap(name, fn))
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
-            setattr(self.PK, name, fn)
+            setattr(self.mod, name, fn)
 
     def _wrap(self, name, fn):
         def call(curve, *args):
             if name == "_point_op":
                 key = (args[0], curve.name, tuple(args[1].x.shape))
+            elif name == "_columns":  # (kind, px, py, qinf, head)
+                key = (args[0], curve.name, tuple(args[1].shape))
             else:
                 key = ({"accumulate_columns": "columns", "fold_columns": "fold"}[name],
                        curve.name, tuple(args[0].shape))
@@ -499,7 +618,7 @@ class Recorder:
 
 def prove_production(backend=None, proofs=((0, (7, 9)), (1, (2, 3))), record=False):
     prover, aux, vk = load_production(backend)
-    recorder = Recorder() if record else None
+    recorder = Recorder(rns=(backend or "").startswith("rns")) if record else None
     reset_counts()
     for n, (idx, (r, s)) in enumerate(proofs):
         if recorder is not None and n == 0:
@@ -624,6 +743,167 @@ def time_recorded(recorder, max_err) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the RNS kernels at the shapes the rns_hybrid proof gave them
+# ---------------------------------------------------------------------------
+
+# RNS products per formula (G1; G2 with 4 base products per Fq2 product)
+RNS_PRODUCTS = {"add": (16, 64), "madd": (11, 44), "double": (7, 28)}
+
+
+def rns_product_ops(spec) -> int:
+    """32-bit integer operations of one RNS Montgomery product, counted as
+    the int32 ceiling counts them (a multiply-add is 2): the two base
+    extensions' multiply-adds ((k2+1)·k1 and (k1+1)·k2) and ~4 instructions
+    (product, Barrett high product, product, subtract), 2 operations each,
+    for each of the Kt + 4·k1 + 3·k2 + 2 channel modular products."""
+    k1, k2, kt = spec.k1, spec.k2, spec.kt
+    return 2 * ((k2 + 1) * k1 + (k1 + 1) * k2) + 2 * 4 * (kt + 4 * k1 + 3 * k2 + 2)
+
+
+def rns_bound_ms(kind, curve, args):
+    """Least time of one RNS-kernel call: each input read once and each output
+    written once over HBM rate, against the integer operations of the RNS
+    products this run's data needs (no mixed add at a head; the hybrid
+    column's limb sums and conversion products; the zero tests and the rare
+    doubling lanes not counted) over the int32 ceiling."""
+    from manta_tpu_torch.ops import rns as R
+
+    spec = R.default_spec(curve.field)
+    comps = 2 if curve.is_ext else 1
+    g = 1 if curve.is_ext else 0
+    per = rns_product_ops(spec)
+    if kind == "point":  # args: (which, p[, q])
+        which, size = args[0], args[1].x.numel()
+        words = size * (3 if which == "double" else 6) + 3 * size
+        ops = RNS_PRODUCTS[which][g] * (size // (spec.kt * comps)) * per
+    else:  # args: (kind, px, py, qinf, head)
+        _, px, _, qinf, head = args
+        steps, lanes = head.shape
+        words = 2 * px.numel() + 2 * head.numel() + 3 * steps * comps * spec.kt * lanes
+        ops = RNS_PRODUCTS["madd"][g] * int((~head.bool()).sum()) * per
+        if kind == "hybrid":  # limb sums and one conversion product per coordinate component
+            L = curve.field.num_limbs
+            ops += steps * lanes * 2 * comps * (2 * L * spec.kt + per)
+    t_bytes = words * 4 / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# the shape of each RNS kernel that its `kernels` entry reports from the
+# rns_hybrid proof: the G1 bucket merge of MSM A and its hybrid column (the
+# column kernel's is the entry point's largest G1 column, phase 10)
+RNS_MAIN_SHAPES = {
+    "point": ("add", "bn254_g1", (51, 20, 4097)),
+    "hybrid": ("hybrid", "bn254_g1", (128, 16, 10240)),
+}
+
+
+def _time_row(fn, row, kind, curve, args):
+    once = graph_ms(fn, 1)
+    reps = max(1, min(200, int(20 / max(once, 1e-3))))
+    row["ms"] = graph_ms(fn, reps)
+    row["call_ms"] = cuda_ms(fn, reps)
+    row["bound_ms"], row["bound_by"] = rns_bound_ms(kind, curve, args)
+
+
+def time_recorded_rns(recorder, max_err, main_shapes, path) -> dict:
+    """Hold every recorded RNS-kernel call of a proof against its plain
+    version (PyTorch on the card) on the recorded inputs, bit for bit; raise
+    on any difference, keep the largest in `max_err`. Time each call beside
+    its bound, and its plain version; the rows at `main_shapes` are the ones
+    the `kernels` line reports."""
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
+
+    rows = {"point": [], "columns": [], "hybrid": []}
+    for (which, curve_name, shape), (fn, curve, args) in sorted(
+        recorder.calls.items(), key=lambda kv: kv[0]
+    ):
+        kind = "point" if which in RNS_PRODUCTS else which
+        got = _coords(fn(curve, *args))
+        t0 = time.perf_counter()
+        if kind == "point":
+            want = RK.plain_rns_point_op(curve, *args)
+        else:
+            want = RK.PLAIN[kind](curve, *args[1:])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _max_err(got, _coords(want))
+        row = {"op": which, "curve": curve_name, "shape": list(shape), "path": path,
+               "max_abs_err": err, "plain_ms": plain_ms}
+        max_err[kind] = max(max_err[kind], err)
+        if err:
+            raise AssertionError(f"RNS {which} {curve_name} {tuple(shape)} ({path}): kernel != "
+                                 f"plain version: max |diff| {err}")
+        if main_shapes.get(kind) == (which, curve_name, shape):
+            row["main"] = True
+        _time_row(lambda: fn(curve, *args), row, kind, curve, args)
+        rows[kind].append(row)
+        log(f"  RNS {which} {curve_name} {tuple(shape)}: bit-equal to the plain version; "
+            f"{row['ms']:.6f} ms on the device, {row['call_ms']:.6f} ms a call, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}), plain {plain_ms:.3f} ms")
+    for kind, (which, curve_name, shape) in main_shapes.items():
+        if not any(r.get("main") for r in rows[kind]):
+            raise AssertionError(f"{path} made no RNS {which} call on {curve_name} at {shape}")
+    return rows
+
+
+def columns_on_hybrid_points(recorder, max_err) -> dict:
+    """The column kernel at the hybrid column's reported shape, on the same
+    points converted to RNS: held against the hybrid kernel's output and its
+    own plain version, and timed."""
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
+
+    fn, curve, args = recorder.calls[RNS_MAIN_SHAPES["hybrid"]]
+    kind, px, py, qinf, head = args
+    ops = RK._plain_curve(curve).ops
+
+    def to_rns(stream):  # (K, L, R) limbs -> (K, Kt, R) residues
+        return ops.from_limbs(stream.movedim(1, 0)).movedim(0, 1).contiguous()
+
+    cargs = ("columns", to_rns(px), to_rns(py), qinf, head)
+    got = _coords(RK.rns_accumulate_columns(curve, *cargs[1:]))
+    hybrid = _coords(fn(curve, *args))
+    t0 = time.perf_counter()
+    want = _coords(RK.plain_rns_accumulate_columns(curve, *cargs[1:]))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(_max_err(got, want), _max_err(got, hybrid))
+    max_err["columns"] = max(max_err["columns"], err)
+    if err:
+        raise AssertionError(f"RNS column kernel at {tuple(cargs[1].shape)}: != plain version "
+                             f"or hybrid kernel: max |diff| {err}")
+    row = {"op": "columns", "curve": curve.name, "shape": list(cargs[1].shape),
+           "path": "the hybrid column's points in RNS", "max_abs_err": err, "plain_ms": plain_ms}
+    _time_row(lambda: RK.rns_accumulate_columns(curve, *cargs[1:]), row, "columns", curve, cargs)
+    log(f"  RNS columns {curve.name} {tuple(cargs[1].shape)} (the hybrid column's points in "
+        f"RNS): bit-equal to the plain version and to the hybrid kernel; {row['ms']:.6f} ms on "
+        f"the device, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), plain {plain_ms:.3f} ms")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the port's entry point
+# ---------------------------------------------------------------------------
+
+
+def entry_dryrun():
+    """Run `torch_entry.dryrun()` with every RNS-kernel call recorded:
+    (launch counts, recorder)."""
+    import torch_entry
+
+    torch_entry._setup()  # the host's key setup, outside the counted run
+    reset_counts()
+    t0 = time.perf_counter()
+    with Recorder(rns=True) as recorder:
+        torch_entry.dryrun()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  torch_entry.dryrun(): {torch_entry.BACKEND} proof of the Poseidon preimage "
+        f"verified in {time.perf_counter() - t0:.3f} s; launches {json.dumps(counts)}")
+    return counts, recorder
+
+
 def main() -> int:
     log("== phase 1: machine")
     smi = record_machine()
@@ -637,10 +917,13 @@ def main() -> int:
     log("== phase 4: point, column and fold kernels vs plain versions")
     point_err = check_point_kernels()
 
-    log("== phase 5: MSMs")
+    log("== phase 5: RNS point, column and hybrid column kernels vs plain versions")
+    rns_err = check_rns_kernels()
+
+    log("== phase 6: MSMs")
     check_msms()
 
-    log("== phase 6: production PrivateTransfer proofs (the meta's backend)")
+    log("== phase 7: production PrivateTransfer proofs (the meta's backend)")
     counts, recorder = prove_production(record=True)
     for group, ops in (("field", ("mul", "add", "sub")), ("point", ("add", "double", "columns", "fold"))):
         for op in ops:
@@ -650,11 +933,36 @@ def main() -> int:
     point_rows = time_recorded(recorder, point_err)
     del recorder
 
-    log("== phase 7: production proof (limb backend)")
+    log("== phase 8: production proof (limb backend)")
     limb_counts, _ = prove_production("limb", proofs=((0, (7, 9)),))
     for op, count in limb_counts["field"].items():
         if count <= 0:
             raise AssertionError(f"the limb path launched no {op} kernel")
+
+    log("== phase 9: production PrivateTransfer proofs on rns_hybrid (this slice's main path)")
+    rns_counts, recorder = prove_production("rns_hybrid", record=True)
+    for op in ("add", "double", "hybrid"):
+        if rns_counts["rns"][op] <= 0:
+            raise AssertionError(f"the rns_hybrid path launched no RNS {op} kernel")
+    log("  the RNS kernels at the shapes of the first proof: checked, then timed")
+    rns_rows = time_recorded_rns(recorder, rns_err, RNS_MAIN_SHAPES,
+                                 "production proof (rns_hybrid)")
+    rns_rows["columns"].append(columns_on_hybrid_points(recorder, rns_err))
+    del recorder
+
+    log("== phase 10: torch_entry.dryrun() (rns_fused)")
+    entry_counts, recorder = entry_dryrun()
+    for op in ("add", "double", "columns"):
+        if entry_counts["rns"][op] <= 0:
+            raise AssertionError(f"the entry point launched no RNS {op} kernel")
+    log("  the RNS kernels at the shapes of the entry point's proof: checked, then timed")
+    g1_columns = max((key for key in recorder.calls if key[:2] == ("columns", "bn254_g1")),
+                     key=lambda key: math.prod(key[2]))
+    entry_rows = time_recorded_rns(recorder, rns_err, {"columns": g1_columns},
+                                   "torch_entry.dryrun (rns_fused)")
+    del recorder
+    for kind, rows in entry_rows.items():
+        rns_rows[kind] += rows
 
     names = {"mul": "field_kernels.mont_mul", "add": "field_kernels.add",
              "sub": "field_kernels.sub"}
@@ -709,7 +1017,43 @@ def main() -> int:
             "shapes": point_rows[kind],
             "build": build[kind],
         })
-    print(json.dumps({"kernels": kernels}), flush=True)
+    rns_launches = {
+        "point": {op: rns_counts["rns"][op] for op in ("add", "madd", "double")},
+        "columns": entry_counts["rns"]["columns"],
+        "hybrid": rns_counts["rns"]["hybrid"],
+    }
+    for kind, name in (("point", "rns_kernels.rns_point_op"),
+                       ("columns", "rns_kernels.rns_accumulate_columns"),
+                       ("hybrid", "rns_kernels.hybrid_accumulate_columns")):
+        main_row = next(r for r in rns_rows[kind] if r.get("main"))
+        launches = rns_launches[kind]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": RNS_SOURCE,
+            "replaces": RNS_REPLACES[kind],
+            # B6 and B8 on the rns_hybrid proofs; B7 on the entry point's rns_fused proof
+            "launches": sum(launches.values()) if kind == "point" else launches,
+            "path": "torch_entry.dryrun (rns_fused)" if kind == "columns" else
+                    "production proofs (rns_hybrid)",
+            "max_abs_err": rns_err[kind],
+            "ms": main_row["ms"],
+            "call_ms": main_row["call_ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": None,
+            "curve": main_row["curve"],
+            "op": main_row["op"],
+            "shape": main_row["shape"],
+            **({"launches_by_op": launches,
+                "entry_launches_by_op": {op: entry_counts["rns"][op]
+                                         for op in ("add", "madd", "double")}}
+               if kind == "point" else {}),
+            "shapes": rns_rows[kind],
+            "build": build[f"rns_{kind}"],
+        })
+    print(json.dumps({"kernels": kernels, "build_seconds": build["seconds"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

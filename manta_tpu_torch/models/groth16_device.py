@@ -97,13 +97,30 @@ _QUERIES = ("a", "b1", "b2", "lh")
 _CONFIGS = {"bn254": PR.BN254_PAIRING, "bls12_381": PR.BLS12_381_PAIRING}
 
 
+def _check_point_rows(cops, backend: str, tag: str, shape) -> None:
+    """Raise unless cached query points have the coordinate rows that
+    `backend` encodes: limb rows for "fused", "limb" and "rns_hybrid",
+    RNS residues for "rns_fused" (a limb cache cannot load there, as in the
+    JAX package)."""
+    want = tuple(cops.encode_points([], "cpu").x.shape[:-1])
+    if tuple(shape[:-1]) != want:
+        raise ValueError(
+            f"the cached {tag!r} query points have coordinate rows {tuple(shape[:-1])}, but "
+            f"backend {backend!r} takes {want}: build the prover on that backend, or load "
+            "this cache on the backend whose encoding it holds"
+        )
+
+
 class DeviceProver:
     """Device-resident prover for one proving key + circuit.
 
     backend: curve backend of the MSMs: "fused" (the default, as in the JAX
     package: one kernel launch per point formula, the bucket loop and the
-    folds as single launches) or "limb" (one field-kernel launch per field
-    op). device: "cuda" by default; "cpu" runs the plain versions.
+    folds as single launches), "limb" (one field-kernel launch per field
+    op), "rns_fused" (RNS point and column kernels over RNS-encoded query
+    points) or "rns_hybrid" (the same group law over limb-encoded query
+    points, converted to RNS inside the column kernel). device: "cuda" by
+    default; "cpu" runs the plain versions.
     """
 
     def __init__(
@@ -193,7 +210,9 @@ class DeviceProver:
     def from_numpy_state(cls, state, backend: Optional[str] = None, device="cuda"):
         """Build a prover from the dict of numpy arrays + JSON meta that
         `save_cache` writes, on the curve backend the meta records (the
-        production cache: "fused") unless `backend` names another."""
+        production cache: "fused") unless `backend` names another. The
+        cache's points serve as they are: limb points on "fused", "limb"
+        and "rns_hybrid", RNS points on "rns_fused"; other pairs raise."""
         meta = json.loads(bytes(np.asarray(state["meta"])).decode())
         cfg = _CONFIGS[meta["cfg"]]
 
@@ -226,6 +245,8 @@ class DeviceProver:
         self.nv = meta["nv"]
         self.n_ab = meta["n_ab"]
         self.n_lh = meta["n_lh"]
+        for tag, cops in (("a", self.g1), ("b1", self.g1), ("b2", self.g2), ("lh", self.g1)):
+            _check_point_rows(cops, bk, tag, state[f"{tag}_x"].shape)
         if meta["n_l"] != self.nv - self.ni or meta["n_l"] + meta["n_h"] > self.n_lh:
             raise ValueError("inconsistent prover state: query lengths do not match")
         self.mats = tuple(
@@ -333,6 +354,22 @@ class DeviceProver:
         z_canon = F.as_tensor(F.encode_ints(self.fr, vals, montgomery=False), self.device)
         return z_mont, z_canon
 
+    def _prove_core(self, z_mont, z_canon, mark=lambda name: None) -> list:
+        """The device part of a proof: witness -> the four MSM accumulators
+        (A, B1, B2, L/H). `mark(phase)` is called after each phase."""
+        sc_a, sc_b1, sc_b2, sc_lh = self._prove_scalars(z_mont, z_canon)
+        mark("scalars")
+        accs = []
+        for tag, cops, sc, pts, n in (
+            ("msm_a", self.g1, sc_a, self.a_pts, self.n_ab),
+            ("msm_b1", self.g1, sc_b1, self.b1_pts, self.n_ab),
+            ("msm_b2", self.g2, sc_b2, self.b2_pts, self.n_ab),
+            ("msm_lh", self.g1, sc_lh, self.lh_pts, self.n_lh),
+        ):
+            accs.append(self._run_msm(cops, sc, pts, n))
+            mark(tag)
+        return accs
+
     def _finish(self, accs, r_rand: int, s_rand: int) -> G.Proof:
         """Host completion: decode the four accumulators, apply the
         constant-size randomization terms."""
@@ -375,18 +412,7 @@ class DeviceProver:
                 timings[name] = now - clock[0]
                 clock[0] = now
 
-        z_mont, z_canon = self._encode_witness(assignment)
-        sc_a, sc_b1, sc_b2, sc_lh = self._prove_scalars(z_mont, z_canon)
-        mark("scalars")
-        accs = []
-        for tag, cops, sc, pts, n in (
-            ("msm_a", self.g1, sc_a, self.a_pts, self.n_ab),
-            ("msm_b1", self.g1, sc_b1, self.b1_pts, self.n_ab),
-            ("msm_b2", self.g2, sc_b2, self.b2_pts, self.n_ab),
-            ("msm_lh", self.g1, sc_lh, self.lh_pts, self.n_lh),
-        ):
-            accs.append(self._run_msm(cops, sc, pts, n))
-            mark(tag)
+        accs = self._prove_core(*self._encode_witness(assignment), mark)
         proof = self._finish(accs, r_rand, s_rand)
         mark("finish")
         return proof

@@ -10,7 +10,12 @@ Coordinates are field-element batches in limb-major Montgomery layout
 (`manta_tpu_torch.ops.field_ops`): (L, ...) int32 for Fq curves (G1) and
 (2, L, ...) for Fq2 curves (G2). `CoordOps` / `Fq2Ops` make the point
 formulas generic over both. Port of `manta_tpu/ops/curve.py`: the limb
-backend here, the fused backend in `ops/kernels/point_kernels.py`.
+backend here, the fused backend in `ops/kernels/point_kernels.py`. The RNS
+backends hold coordinates as packed residues (Kt, ...) / (2, Kt, ...)
+(`ops/rns.py`): `CurveOps(curve, "rns")` runs the formulas above over
+renormalizing RNS field ops, `RnsCurveOps` the bound-annotated formulas, and
+`ops/kernels/rns_kernels.py` the kernels of the "rns_fused" and
+"rns_hybrid" backends.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from manta_tpu_torch import fields
 from manta_tpu_torch.ops import field_ops as F
+from manta_tpu_torch.ops import rns as RNS
 from manta_tpu_torch.utils import hostmath
 
 
@@ -175,18 +181,29 @@ class JacobianPoint(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class CurveOps:
-    """Batched group ops for one short-Weierstrass a=0 curve on the limb
-    backend: every field op is one launch of the field kernel on a CUDA
-    tensor (its plain version on a CPU tensor)."""
+    """Batched group ops for one short-Weierstrass a=0 curve. On the limb
+    backend every field op is one launch of the field kernel on a CUDA
+    tensor (its plain version on a CPU tensor); on the "rns" backend the
+    field ops are the packed RNS ops of `ops/rns.py`."""
 
     curve: hostmath.WeierstrassCurve
     backend: str = "limb"
 
     @functools.cached_property
     def ops(self):
+        if self.backend == "rns":
+            if self.curve.is_ext:
+                return RNS.RnsFq2CoordOps(self.curve.field)
+            return RNS.RnsCoordOps(self.curve.field)
         if self.curve.is_ext:
             return Fq2Ops(self.curve.field)
         return CoordOps(self.curve.field)
+
+    @property
+    def limb16_points(self) -> bool:
+        """True when the affine point arrays this backend feeds the MSM are
+        (L, n) rows of 16-bit limbs, which the MSM gathers two to a word."""
+        return not self.curve.is_ext and self.backend != "rns"
 
     # -- host <-> device --
 
@@ -356,23 +373,117 @@ _NAMED = {
 
 
 @functools.lru_cache(maxsize=None)
-def _ops_cache(curve: hostmath.WeierstrassCurve) -> CurveOps:
-    return CurveOps(curve)
+def _ops_cache(curve: hostmath.WeierstrassCurve, backend: str) -> CurveOps:
+    return CurveOps(curve, backend)
+
+
+BACKENDS = ("limb", "fused", "rns", "rns_fused", "rns_hybrid")
 
 
 def curve_ops_for(curve: hostmath.WeierstrassCurve, backend: str = "limb") -> CurveOps:
-    """Curve ops for `backend`: "limb" (one field-kernel launch per field op)
-    or "fused" (one kernel launch per whole formula, and the MSM's column and
-    fold kernels; `ops/kernels/point_kernels.py`). The RNS backends are not
-    ported yet."""
+    """Curve ops for `backend`: "limb" (one field-kernel launch per field op),
+    "fused" (one kernel launch per whole formula, and the MSM's column and
+    fold kernels; `ops/kernels/point_kernels.py`), "rns" (the formulas over
+    RNS field ops), "rns_fused" (RNS point and column kernels) or
+    "rns_hybrid" (RNS group law over limb point arrays;
+    `ops/kernels/rns_kernels.py`)."""
     if backend == "fused":
         from manta_tpu_torch.ops.kernels.point_kernels import fused_curve_ops_for
 
         return fused_curve_ops_for(curve)
-    if backend != "limb":
-        raise NotImplementedError(
-            f"curve backend {backend!r} is not ported yet: the RNS backends "
-            "('rns_fused', 'rns_hybrid') come with a later slice of the port; "
-            "use backend='fused' or 'limb'"
-        )
-    return _NAMED.get(curve.name) or _ops_cache(curve)
+    if backend in ("rns_fused", "rns_hybrid"):
+        from manta_tpu_torch.ops.kernels import rns_kernels as RK
+
+        return getattr(RK, f"{backend}_curve_ops_for")(curve)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown curve backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "limb" and curve.name in _NAMED:
+        return _NAMED[curve.name]
+    return _ops_cache(curve, backend)
+
+
+@functools.lru_cache(maxsize=None)
+def rns_curve_ops_for(curve: hostmath.WeierstrassCurve) -> "RnsCurveOps":
+    """RNS backend with the bound-annotated (renormalization-free) formulas."""
+    return RnsCurveOps(curve, "rns")
+
+
+@dataclasses.dataclass(frozen=True)
+class RnsCurveOps(CurveOps):
+    """Curve ops with the bound-annotated RNS formulas of the JAX package
+    (`manta_tpu/ops/curve.py::RnsCurveOps`): raw residue adds and subs with
+    per-call offsets instead of a renormalizing product per add or sub. The
+    `sub_k` offsets are the JAX package's, literal for literal: they decide
+    the residues.
+
+    Bound audit (values as multiples of p; product outputs < (k1+2)p ≈ 2^6):
+    every mul/sqr resets to 2^6; the longest raw chains stay <= 2^11.2, and
+    the RNS spec admits product inputs up to 2^12 (M1 > 2^25·p)."""
+
+    def double(self, pt: JacobianPoint) -> JacobianPoint:
+        o = self.ops
+        a = o.sqr(pt.x)  # 2^6
+        b = o.sqr(pt.y)  # 2^6
+        c = o.sqr(b)  # 2^6
+        t = o.sqr(o.add_raw(pt.x, b))  # input <= 2^11; out 2^6
+        d = o.double_raw(o.sub_k(o.sub_k(t, a, 6), c, 6))  # <= 2^8.6
+        e = o.add_raw(o.add_raw(a, a), a)  # 3·2^6 <= 2^8
+        f = o.sqr(e)  # 2^6
+        x3 = o.sub_k(f, o.double_raw(d), 10)  # <= 2^6 + 2^10
+        c8 = o.double_raw(o.double_raw(o.double_raw(c)))  # 2^9
+        y3 = o.sub_k(o.mul(e, o.sub_k(d, x3, 11)), c8, 9)  # <= 2^9.2
+        z3 = o.mul(o.double_raw(pt.y), pt.z)  # 2^6
+        return JacobianPoint(x3, y3, z3)
+
+    def add(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+        o = self.ops
+        z1z1 = o.sqr(p.z)
+        z2z2 = o.sqr(q.z)
+        u1 = o.mul(p.x, z2z2)
+        u2 = o.mul(q.x, z1z1)
+        s1 = o.mul(o.mul(p.y, q.z), z2z2)
+        s2 = o.mul(o.mul(q.y, p.z), z1z1)
+        h = o.sub_k(u2, u1, 6)  # <= 2^7
+        rr = o.sub_k(s2, s1, 6)  # <= 2^7
+        h_zero = o.is_zero(h)
+        r_zero = o.is_zero(rr)
+        i = o.sqr(o.double_raw(h))  # 2^6
+        j = o.mul(h, i)  # 2^6
+        r2 = o.double_raw(rr)  # 2^8
+        v = o.mul(u1, i)  # 2^6
+        x3 = o.sub_k(o.sub_k(o.sqr(r2), j, 6), o.double_raw(v), 7)  # <= 2^8.3
+        y3 = o.sub_k(
+            o.mul(r2, o.sub_k(v, x3, 9)),  # inner <= 2^9.3; out 2^6
+            o.double_raw(o.mul(s1, j)),  # 2^7
+            7,
+        )  # <= 2^7.3
+        z3 = o.mul(o.mul(o.double_raw(p.z), q.z), h)  # inputs <= 2^7
+        return self._add_dispatch(p, q, JacobianPoint(x3, y3, z3), h_zero, r_zero)
+
+    def madd(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+        """Bound-annotated mixed add (madd-2007-bl). Accumulator bounds under
+        MSM use: a fresh affine value, a madd output (x <= 2^8.1,
+        y <= 2^7.7, z <= 2^7.6) or a double output (x <= 2^10.1, y <= 2^9.2,
+        z <= 2^6); the offsets cover x <= 2^11, y <= 2^10, z <= 2^8, and
+        every product input stays <= 2^12. q is normalized (< p)."""
+        o = self.ops
+        z1z1 = o.sqr(p.z)  # 2^6
+        u2 = o.mul(q.x, z1z1)  # 2^6
+        s2 = o.mul(o.mul(q.y, p.z), z1z1)  # 2^6
+        h = o.sub_k(u2, p.x, 11)  # <= 2^6 + 2^11
+        rhalf = o.sub_k(s2, p.y, 10)  # <= 2^6 + 2^10
+        h_zero = o.is_zero(h)
+        r_zero = o.is_zero(rhalf)
+        hh = o.sqr(h)  # 2^6
+        i4 = o.double_raw(o.double_raw(hh))  # 2^8
+        j = o.mul(h, i4)  # 2^6
+        r = o.double_raw(rhalf)  # <= 2^11.1
+        v = o.mul(p.x, i4)  # 2^6
+        x3 = o.sub_k(o.sub_k(o.sqr(r), j, 6), o.double_raw(v), 7)  # <= 2^8.1
+        y3 = o.sub_k(
+            o.mul(r, o.sub_k(v, x3, 9)),  # inner <= 2^9.2; out 2^6
+            o.double_raw(o.mul(p.y, j)),  # 2^7
+            7,
+        )  # <= 2^7.7
+        z3 = o.sub_k(o.sub_k(o.sqr(o.add_raw(p.z, h)), z1z1, 6), hh, 6)  # <= 2^7.6
+        return self._add_dispatch(p, q, JacobianPoint(x3, y3, z3), h_zero, r_zero)

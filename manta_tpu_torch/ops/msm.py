@@ -31,7 +31,11 @@ Port of `manta_tpu/ops/msm.py`, limb and fused backends:
 On the limb backend every field operation is one launch of the field kernel
 on a CUDA tensor (`ops/kernels/field_kernels.py`); on the fused backend each
 point formula is one launch (`ops/kernels/point_kernels.py`) and only the
-glue (selects, negations) runs as field ops. GLV is a later slice.
+glue (selects, negations) runs as field ops. The RNS backends
+(`ops/kernels/rns_kernels.py`) have a column kernel and point-formula
+kernels but no fold kernel, so they take the non-fold path; the hybrid one
+keeps the affine point arrays as limbs (`point_ops`, `point_infinity_like`)
+while its buckets are RNS. GLV is a later slice.
 """
 
 from __future__ import annotations
@@ -260,11 +264,19 @@ def _bucket_sums_fused(
         g = a[..., perm].movedim(-2, 0)
         return g.reshape(*g.shape[:-2], num_windows * lanes)
 
-    px, py = gather(points.x), gather(points.y)
+    # the point arrays' own field ops: split-representation backends (limb
+    # points feeding an RNS accumulation) name them `point_ops`
+    po = getattr(cops, "point_ops", None) or cops.ops
+    if cops.limb16_points:
+        # (L, n) rows of 16-bit limbs: gather x and y two to a word
+        g = gather(points.x | (points.y << 16))
+        px, py = g & 0xFFFF, (g >> 16) & 0xFFFF
+    else:
+        px, py = gather(points.x), gather(points.y)
     if negs is not None:
         neg_t = negs.gather(-1, perm.reshape(num_windows, -1)).reshape(perm.shape)
         neg_t = neg_t.permute(1, 0, 2).reshape(steps, *(1,) * (py.ndim - 2), -1)
-        py = torch.where(neg_t, gather(cops.ops.neg(points.y)), py)
+        py = torch.where(neg_t, gather(po.neg(points.y)), py)
     qinf = cops.affine_infinity_mask(points)[perm].permute(1, 0, 2)  # (K, W, R)
     ox, oy, oz = cops.run_columns(
         px, py, qinf.reshape(steps, -1), head.reshape(steps, -1)
@@ -273,6 +285,8 @@ def _bucket_sums_fused(
         *(a.reshape(*a.shape[:-1], num_windows, lanes) for a in (ox, oy, oz))
     )  # (K, *E, W, R)
 
+    # bucket template from the column OUTPUT shapes: the hybrid backend feeds
+    # the kernel limb points and gets RNS accumulators back
     def tmpl(a):
         return torch.zeros((*a.shape[1:-1], num_buckets), dtype=a.dtype, device=a.device)
 
@@ -287,7 +301,10 @@ def _bucket_sums_fused(
         return flat.gather(-1, pos_c.expand(*flat.shape[:-2], *pos_c.shape))
 
     buckets_a = _scatter_drop(binf, idx_b, _map(stream, pick))
-    acc_last = _map(stream, lambda a: a[-1])
+    # the last step is all that stays: copying it frees the (K, *E, W·R)
+    # streams (0.8–1.6 GB an MSM of the production prover) at return
+    acc_last = _map(stream, lambda a: a[-1].clone())
+    del stream, ox, oy, oz
     if parts:
         return buckets_a, acc_last, d_t
     buckets_b = _fold_partials(cops, acc_last, d_t, binf, num_buckets)
@@ -562,7 +579,7 @@ def msm(
         # pad with infinity points, digit 0 (bucket 0 has weight 0)
         pad = n2 - n
         scalars = torch.cat([scalars, scalars.new_zeros((scalars.shape[0], pad))], -1)
-        inf = cops.infinity_like(points)
+        inf = getattr(cops, "point_infinity_like", cops.infinity_like)(points)
         points = JacobianPoint(
             *(torch.cat([a, ia[..., :pad]], -1) for a, ia in zip(points, inf))
         )
@@ -574,7 +591,7 @@ def msm(
     lanes = n2 // steps
     covered = num_buckets - 1 if signed else num_buckets
     fold_path = (
-        _fused(cops)
+        hasattr(cops, "run_fold_columns")
         and lanes % 128 == 0
         and covered % 128 == 0
         and 2 * num_windows <= 128

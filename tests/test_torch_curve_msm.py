@@ -78,13 +78,19 @@ def test_to_affine_matches_hostmath(name):
     assert cops.ops.decode(aff.z) == [zero if w is None else one for w in want]
 
 
-def test_other_backends_raise():
-    """The RNS backends are not ported; "fused" is, and the default stays "limb"."""
-    for backend in ("rns_fused", "rns_hybrid"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            C.curve_ops_for(TH.BN254_G1, backend)
-    assert C.curve_ops_for(TH.BN254_G1, "fused").backend == "fused"
+@pytest.mark.parametrize("backend", ["fused", "rns_fused", "rns_hybrid", "unknown"])
+def test_other_backends_raise(backend):
+    """Every ported backend is served and the default stays "limb"; an
+    unknown backend name raises."""
     assert C.curve_ops_for(TH.BN254_G1).backend == "limb"
+    if backend == "unknown":
+        with pytest.raises(ValueError, match="unknown curve backend"):
+            C.curve_ops_for(TH.BN254_G1, "rns_turbo")
+        return
+    cops = C.curve_ops_for(TH.BN254_G1, backend)
+    assert cops.backend == ("fused" if backend == "fused" else "rns")
+    assert hasattr(cops, "run_columns")
+    assert hasattr(cops, "point_ops") == (backend == "rns_hybrid")
 
 
 @pytest.mark.parametrize("window_bits,scalar_bits", [(13, 254), (8, 254), (16, 255), (5, 0)])

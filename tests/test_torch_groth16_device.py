@@ -86,20 +86,33 @@ def _with_meta(state, **changes):
     return {**state, "meta": np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)}
 
 
-def test_fused_backend_and_missing_card_raise():
+@pytest.mark.parametrize("backend", ["fused", "rns_fused", "rns_hybrid", "unknown"])
+def test_fused_backend_and_missing_card_raise(backend):
     """A meta recording "fused" (as the production cache does) loads on the
-    fused backend with no override; an RNS backend is not ported and raises;
-    so does asking for the card where there is none."""
+    fused backend with no override, and "limb" overrides it; asking for the
+    card where there is none raises. The limb state loads on "rns_hybrid"
+    (limb points) and not on "rns_fused" (RNS points), which raises, as an
+    unknown backend does."""
     *_, state = _slice()
-    prover = DeviceProver.from_numpy_state(_with_meta(state, backend="fused"), device="cpu")
-    assert prover.g1.backend == prover.g2.backend == "fused"
-    assert hasattr(prover.g1, "run_fold_columns")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DeviceProver.from_numpy_state(_with_meta(state, backend="rns_fused"), device="cpu")
-    assert DeviceProver.from_numpy_state(state, backend="limb", device="cpu").g1.backend == "limb"
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            DeviceProver.from_numpy_state(state)
+    if backend == "fused":
+        prover = DeviceProver.from_numpy_state(_with_meta(state, backend="fused"), device="cpu")
+        assert prover.g1.backend == prover.g2.backend == "fused"
+        assert hasattr(prover.g1, "run_fold_columns")
+        limb = DeviceProver.from_numpy_state(state, backend="limb", device="cpu")
+        assert limb.g1.backend == "limb"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                DeviceProver.from_numpy_state(state)
+    elif backend == "rns_fused":
+        with pytest.raises(ValueError, match="coordinate rows"):
+            DeviceProver.from_numpy_state(state, backend=backend, device="cpu")
+    elif backend == "rns_hybrid":
+        hybrid = DeviceProver.from_numpy_state(state, backend=backend, device="cpu")
+        assert hybrid.g1.backend == hybrid.g2.backend == "rns"
+        assert hasattr(hybrid.g2, "point_ops") and not hasattr(hybrid.g1, "run_fold_columns")
+    else:
+        with pytest.raises(ValueError, match="unknown curve backend"):
+            DeviceProver.from_numpy_state(_with_meta(state, backend="rns_turbo"), device="cpu")
 
 
 def test_h_and_scalars_match_host():
@@ -255,3 +268,16 @@ def test_port_host_layer_matches_the_jax_package():
         np.testing.assert_array_equal(mat.coeffs, state[f"mat{i}_coeffs"])
         np.testing.assert_array_equal(mat.cols, state[f"mat{i}_cols"])
         np.testing.assert_array_equal(mat.seg_ids, state[f"mat{i}_seg"])
+
+
+def test_rns_hybrid_proof_equals_fused_proof():
+    """The limb state on the "rns_hybrid" backend (its limb points as they
+    are, RNS buckets) proves the fused backend's proof, at random r, s."""
+    _, assignment, digest, _, vk, state = _slice()
+    rng = np.random.default_rng(33)
+    r, s = (int.from_bytes(rng.bytes(32), "little") % JPR.BN254_PAIRING.g1.scalar_field.modulus
+            for _ in range(2))
+    hybrid = DeviceProver.from_numpy_state(state, backend="rns_hybrid", device="cpu")
+    proof = hybrid.prove(assignment, r, s)
+    assert _as_tuple(proof) == _as_tuple(_fused_prover().prove(assignment, r, s))
+    assert JG.verify(vk, JG.Proof(*_as_tuple(proof)), [digest])

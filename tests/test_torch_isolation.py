@@ -37,13 +37,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert report["bad"] == []
     for name in ("manta_tpu_torch.ops.field_ops", "manta_tpu_torch.ops.kernels.field_kernels",
                  "manta_tpu_torch.ops.kernels.point_kernels", "manta_tpu_torch.ops.kernels.build",
-                 "manta_tpu_torch.ops.msm", "manta_tpu_torch.models.groth16_device"):
+                 "manta_tpu_torch.ops.msm", "manta_tpu_torch.models.groth16_device",
+                 "manta_tpu_torch.ops.rns", "manta_tpu_torch.ops.kernels.rns_kernels"):
         assert name in report["modules"]
 
 
 def test_no_port_source_mentions_jax_imports():
     sources = [*(ROOT / "manta_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
-               *(ROOT / "tools").glob("torch_*.py")]
+               ROOT / "torch_entry.py", *(ROOT / "tools").glob("torch_*.py")]
     for path in sources:
         for line in path.read_text().splitlines():
             stripped = line.strip()
@@ -63,7 +64,7 @@ def test_cuda_entry_points_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         F.resolve_device()
-    for backend in ("limb", "fused"):
+    for backend in ("limb", "fused", "rns_fused", "rns_hybrid"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             C.curve_ops_for(hostmath.BN254_G1, backend).encode_points([hostmath.BN254_G1.generator])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,13 +1,15 @@
 """Where one production PrivateTransfer proof spends its time on the GPU.
 
-    python3 tools/torch_profile_prove.py [--backend fused|limb] [--out PATH]
+    python3 tools/torch_profile_prove.py [--backend fused|limb|rns_hybrid] [--out PATH]
 
 Loads `.bench_prover_pt.npz` into the port's `DeviceProver` (CUDA) on the
-curve backend asked for (default: fused, the backend the cache records),
+curve backend asked for (default: fused, the backend the cache records; the
+cache's limb points serve "rns_hybrid" as they are),
 proves `assignments[0]` of `.bench_prover_pt_aux.json` once to warm up, then
 proves it again under `torch.profiler` and prints: the wall time of each
 phase, the device's busy time (sum of CUDA kernel times) and idle share of
-the proof's wall time, the launches of each field-kernel op and point kernel,
+the proof's wall time, the launches of each field-kernel op, point kernel and
+RNS kernel,
 and the kernels that take the most device time. With --out, the full
 `key_averages` table is written to PATH.
 Needs one CUDA device.
@@ -29,7 +31,7 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--backend", default="fused", choices=("fused", "limb"),
+    ap.add_argument("--backend", default="fused", choices=("fused", "limb", "rns_hybrid"),
                     help="curve backend of the MSMs (default: fused)")
     ap.add_argument("--out", help="write the full key_averages table here")
     args = ap.parse_args()
@@ -42,6 +44,7 @@ def main() -> int:
     from manta_tpu_torch.models.groth16_device import DeviceProver
     from manta_tpu_torch.ops.kernels import field_kernels as K
     from manta_tpu_torch.ops.kernels import point_kernels as PK
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
     from manta_tpu_torch.utils import keyio
 
     prover = DeviceProver.from_cache(
@@ -57,6 +60,7 @@ def main() -> int:
 
     K.reset_launches()
     PK.reset_launches()
+    RK.reset_launches()
     timings = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -70,6 +74,7 @@ def main() -> int:
     print("phases (s): " + json.dumps(timings))
     print(f"field-kernel launches in the proof: {dict(K.LAUNCHES)}")
     print(f"point-kernel launches in the proof: {dict(PK.LAUNCHES)}")
+    print(f"RNS-kernel launches in the proof: {dict(RK.LAUNCHES)}")
 
     events = prof.key_averages()
     device_us = 0.0
