@@ -15,11 +15,17 @@ phase catches its own failure:
    lazy values plus the edge values 0, 1, p-1, p, 2p-1; time kernel and
    plain version at the prover's shapes beside the bound (the kernel's device
    time from a replayed CUDA graph, and its time a call from Python);
-4. hold the point-op (add, madd, double), column and fold kernels against
-   their plain versions, bit for bit, on BN254 G1 and G2 and BLS12-381 G1
-   and G2: point ops over 1000 lanes with the lanes P+P, P+(-P), P+inf,
-   inf+Q and inf+inf; column and fold at K = 16, R = 1024 with random head
-   and qinf masks plus an all-head row and an all-infinity column;
+4. hold the point-op (add, madd, double), column, fold and combine kernels
+   against their plain versions, bit for bit, on BN254 G1 and G2 and
+   BLS12-381 G1 and G2: point ops over 1000 lanes with the lanes P+P,
+   P+(-P), P+inf, inf+Q and inf+inf; column and fold at K = 16, R = 1024
+   with random head and qinf masks plus an all-head row and an all-infinity
+   column; the fold (with and without B) also at K = 37 (4 threads a lane,
+   37 not a multiple of 4) and K = 128 (32 threads a lane) with an all-head
+   and a no-head lane, heads on the first and on the last step of every
+   chunk, a lane of q, -q, q, ... (inner sums at infinity) and a lane of one
+   point repeated (inner sums double); the combine at 20 windows of 13 bits
+   (5 weight doublings) and at 3 windows;
 5. the same for the RNS kernels (point op, column, hybrid column) against
    their plain versions, bit for bit, on the four curves, and the RNS
    kernels' table-free zero test against the 2^13-row zero-class table on
@@ -33,12 +39,15 @@ phase catches its own failure:
 7. the production PrivateTransfer prover from `.bench_prover_pt.npz` on the
    backend its meta records (fused), two proofs (r, s) = (7, 9) and (2, 3),
    each verified by the host pairing against `.bench_prover_pt_vk.bin`,
-   with the launch count of every kernel read around that run; the point
-   kernels' calls of the first proof are recorded, each (kernel, curve,
-   shape) held bit for bit against the same formulas through the limb
-   `CurveOps` on the card on the recorded inputs (and at the shape its
-   `kernels` entry reports, against the plain version too), then timed at
-   that shape beside its bound;
+   with the launch count of every kernel read around that run (fold 16 and
+   combine 4 a proof, at most 8 point ops: the bucket merges); the point
+   kernels' calls of the first proof (point ops, columns, every fold level,
+   the combines) are recorded, each (kernel, curve, shape) held bit for bit
+   against the same formulas through the limb `CurveOps` on the card on the
+   recorded inputs (and at the shape its `kernels` entry reports, against
+   the plain version too), then timed at that shape beside its bound; the
+   single-lane doubling that the combine replaced is timed at the Horner
+   shape as a yardstick;
 8. one proof on the limb backend, verified, its launches read around it;
 9. the main path of the RNS slice: the same prover on "rns_hybrid" (its
    limb points as they are), two proofs verified, launches read around
@@ -85,6 +94,8 @@ POINT_REPLACES = {
     "point": "manta_tpu/ops/pallas/point_kernels.py:501",
     "columns": "manta_tpu/ops/pallas/point_kernels.py:603",
     "fold": "manta_tpu/ops/pallas/point_kernels.py:711",
+    # the window sums and Horner loop that ran as `_point_op` launches
+    "combine": "manta_tpu/ops/pallas/point_kernels.py:501",
 }
 RNS_SOURCE = "manta_tpu_torch/csrc/rns_kernels.cu"
 RNS_REPLACES = {
@@ -280,7 +291,7 @@ def build_kernels() -> dict:
     seconds = time.perf_counter() - t0
     log(f"  built {len(paths)} libraries in {seconds:.3f} s: "
         + ", ".join(os.path.relpath(p, ROOT) for p in paths))
-    report = {"field": {}, "point": {}, "columns": {}, "fold": {}, "rns_point": {},
+    report = {"field": {}, "point": {}, "columns": {}, "fold": {}, "combine": {}, "rns_point": {},
               "rns_columns": {}, "rns_hybrid": {}, "seconds": seconds}
     texts = {what: text for lib in libs for what, text in B.reports(lib).items()}
     if len(texts) != sum(len(lib.units) for lib in libs):
@@ -339,7 +350,7 @@ def check_point_kernels() -> dict:
     from manta_tpu_torch.ops.kernels import point_kernels as PK
 
     rng = np.random.default_rng(SEED + 1)
-    max_err = {"point": 0, "columns": 0, "fold": 0}
+    max_err = {"point": 0, "columns": 0, "fold": 0, "combine": 0}
 
     def hold(kind, what, got, want):
         torch.cuda.synchronize()
@@ -374,12 +385,47 @@ def check_point_kernels() -> dict:
         hold("columns", f"{name} column", PK.accumulate_columns(curve, px, py, qinf, head),
              PK.plain_accumulate_columns(curve, px, py, qinf, head))
         q = [stream(c) for c in limb.double(enc)]
-        got_a, got_b = PK.fold_columns(curve, *q, head)
-        want_a, want_b = PK.plain_fold_columns(curve, *q, head)
+        got_a, got_b = PK.fold_columns(curve, *q, head, True)
+        want_a, want_b = PK.plain_fold_columns(curve, *q, head, True)
         hold("fold", f"{name} fold", [*got_a, *got_b], [*want_a, *want_b])
+        for k in (37, 128):
+            q, fold_head = fold_stream(curve, limb, rng, k, 40)
+            for sums in (False, True):
+                got_a, got_b = PK.fold_columns(curve, *q, fold_head, sums)
+                want_a, want_b = PK.plain_fold_columns(curve, *q, fold_head, sums)
+                hold("fold", f"{name} fold K={k} sums={sums}",
+                     [*got_a, *(got_b or ())], [*want_a, *(want_b or ())])
+        for windows in (20, 3):
+            a, b = (limb.double(limb.encode_points(host_points(curve, rng, 2 * windows), "cuda"))
+                    for _ in range(2))
+            hold("combine", f"{name} combine W={windows}", PK.combine_windows(curve, a, b, 5, 13),
+                 PK.plain_combine_windows(curve, a, b, 5, 13))
         log(f"  {name}: point add / madd / double over 1000 lanes, column and fold at "
-            f"K={K}, R={R}: bit-equal to the plain versions")
+            f"K={K}, R={R}, fold at K=37 and 128 (R=40, edge lanes), combine at W=20 and 3: "
+            f"bit-equal to the plain versions")
     return max_err
+
+
+def fold_stream(curve, limb, rng, K, R):
+    """(K, *E, R) Jacobian fold streams and a (K, R) head mask with the edge
+    lanes of the scan: 0 alternates q and -q, 1 repeats one point, 2 is all
+    heads, 3 has none, 4 has a head on every chunk's first step and 5 on
+    every chunk's last step; the other lanes random."""
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    pts = host_points(curve, rng, K * R, 0.05)
+    g = curve.generator
+    for k in range(K):
+        pts[k] = g if k % 2 == 0 else curve.neg(g)
+        pts[K + k] = pts[K]
+    enc = limb.double(limb.encode_points(pts, "cuda"))
+    q = [c.reshape(*c.shape[:-1], R, K).movedim(-1, 0).contiguous() for c in enc]
+    head = rng.random((K, R)) < 0.2
+    chunk = -(-K // PK.fold_threads(K))
+    head[:, 2], head[:, 3] = True, False
+    head[:, 4] = np.arange(K) % chunk == 0
+    head[:, 5] = np.arange(K) % chunk == chunk - 1
+    return q, torch.from_numpy(head).cuda()
 
 
 # ---------------------------------------------------------------------------
@@ -588,7 +634,7 @@ class Recorder:
 
         self.mod = RK if rns else PK
         self.names = ("_point_op", "_columns") if rns else (
-            "_point_op", "accumulate_columns", "fold_columns")
+            "_point_op", "accumulate_columns", "fold_columns", "combine_windows")
         self.calls, self.saved = {}, {}
 
     def __enter__(self):
@@ -608,8 +654,10 @@ class Recorder:
             elif name == "_columns":  # (kind, px, py, qinf, head)
                 key = (args[0], curve.name, tuple(args[1].shape))
             else:
-                key = ({"accumulate_columns": "columns", "fold_columns": "fold"}[name],
-                       curve.name, tuple(args[0].shape))
+                kind = {"accumulate_columns": "columns", "fold_columns": "fold",
+                        "combine_windows": "combine"}[name]
+                first = args[0].x if kind == "combine" else args[0]
+                key = (kind, curve.name, tuple(first.shape))
             self.calls.setdefault(key, (fn, curve, args))
             return fn(curve, *args)
 
@@ -645,8 +693,10 @@ def point_bound_ms(kind, curve, args):
     each output written once) over HBM rate, against its 32-bit
     multiply-adds (2 operations each: 2·S² + S per Montgomery product, S
     words; the formulas this run's data needs: no mixed add at a head, no
-    add into A at a head in the fold; the rare doubling lanes of the edge
-    dispatch are not counted) over the int32 ceiling."""
+    add into A at a head in the fold, K additions into B where the caller
+    asks for B; the fold scan's extra additions are not the function's
+    work; the rare doubling lanes of the edge dispatch are not counted) over
+    the int32 ceiling."""
     words = (curve.field.num_limbs + 1) // 2
     per_product = 2 * (2 * words * words + words)
     g = 1 if curve.is_ext else 0
@@ -659,10 +709,18 @@ def point_bound_ms(kind, curve, args):
         px, _, _, head = args
         coords = 5 * px.numel() + 2 * head.numel()
         products = PRODUCTS["madd"][g] * int((~head.bool()).sum())
-    else:
-        qx, _, _, head = args
-        coords = 9 * qx.numel() + head.numel()
-        products = PRODUCTS["add"][g] * (head.numel() + int((~head.bool()).sum()))
+    elif kind == "fold":  # args: (qx, qy, qz, head, sums); B's last row with sums
+        qx, _, _, head, sums = args
+        coords = 6 * qx.numel() + head.numel() + (3 * qx[0].numel() if sums else 0)
+        products = PRODUCTS["add"][g] * (int((~head.bool()).sum())
+                                         + (head.numel() if sums else 0))
+    else:  # combine: (a, b, doublings, window_bits); a, b (*E, 2W) -> (*E, 1)
+        a, _, doublings, window_bits = args
+        windows = a.x.shape[-1] // 2
+        coords = 6 * a.x.numel() + 3 * a.x.numel() // a.x.shape[-1]
+        doubles = windows * doublings + (windows - 1) * window_bits
+        products = (PRODUCTS["double"][g] * doubles
+                    + PRODUCTS["add"][g] * (2 * windows + windows - 1))
     t_bytes = coords * 4 / HBM_BYTES_PER_S
     t_ops = products * per_product / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -670,11 +728,12 @@ def point_bound_ms(kind, curve, args):
 
 # the shape of each kernel that its `kernels` entry reports, with its plain
 # time: the G1 column of MSM A, the weighted fold's first level, the bucket
-# merge of the G1 MSMs
+# merge of the G1 MSMs, the G1 combine
 MAIN_SHAPES = {
     "columns": ("columns", "bn254_g1", (128, 16, 10240)),
     "fold": ("fold", "bn254_g1", (32, 16, 2560)),
     "point": ("add", "bn254_g1", (16, 20, 4097)),
+    "combine": ("combine", "bn254_g1", (16, 40)),
 }
 
 
@@ -687,13 +746,16 @@ def reference(kind, which, curve, args):
 
     if kind == "point":
         return getattr(C.curve_ops_for(curve, "limb"), which)(*args[1:])
-    limb = {"columns": PK.limb_accumulate_columns, "fold": PK.limb_fold_columns}[kind]
+    limb = {"columns": PK.limb_accumulate_columns, "fold": PK.limb_fold_columns,
+            "combine": PK.limb_combine_windows}[kind]
     return limb(curve, *args)
 
 
 def _coords(out) -> list:
-    """The coordinate tensors of a point, or of the fold's (A, B) pair."""
-    return [c for pt in out for c in pt] if isinstance(out[0], tuple) else list(out)
+    """The coordinate tensors of a point, or of the fold's (A, B or None)."""
+    if isinstance(out[0], tuple):
+        return [c for pt in out if pt is not None for c in pt]
+    return list(out)
 
 
 def time_recorded(recorder, max_err) -> dict:
@@ -703,8 +765,9 @@ def time_recorded(recorder, max_err) -> dict:
     difference, and keep the largest in `max_err`. Then time each call."""
     from manta_tpu_torch.ops.kernels import point_kernels as PK
 
-    plain = {"columns": PK.plain_accumulate_columns, "fold": PK.plain_fold_columns}
-    rows = {"point": [], "columns": [], "fold": []}
+    plain = {"columns": PK.plain_accumulate_columns, "fold": PK.plain_fold_columns,
+             "combine": PK.plain_combine_windows}
+    rows = {"point": [], "columns": [], "fold": [], "combine": []}
     for (which, curve_name, shape), (fn, curve, args) in sorted(
         recorder.calls.items(), key=lambda kv: kv[0]
     ):
@@ -740,6 +803,38 @@ def time_recorded(recorder, max_err) -> dict:
     for kind, (which, curve_name, shape) in MAIN_SHAPES.items():
         if not any(r.get("main") for r in rows[kind]):
             raise AssertionError(f"the proof made no {which} call on {curve_name} at {shape}")
+    rows["point"] += horner_doublings(recorder, max_err)
+    return rows
+
+
+def horner_doublings(recorder, max_err) -> list:
+    """The single-lane doubling that the combine kernel replaced (247 of them
+    an MSM until PR 6), on the first window row of each recorded combine
+    call: held against the limb reference and timed, as a yardstick for the
+    combine."""
+    from manta_tpu_torch.ops import curve as C
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    rows = []
+    for (which, curve_name, _), (_, curve, args) in sorted(recorder.calls.items(),
+                                                          key=lambda kv: kv[0]):
+        if which != "combine":
+            continue
+        p = C.JacobianPoint(*(c[..., :1].contiguous() for c in args[0]))
+        err = _max_err(PK.fused_double(curve, p), C.curve_ops_for(curve, "limb").double(p))
+        max_err["point"] = max(max_err["point"], err)
+        if err:
+            raise AssertionError(f"double {curve_name} at the Horner shape: kernel != limb "
+                                 f"reference: max |diff| {err}")
+        row = {"op": "double", "curve": curve_name, "shape": list(p.x.shape),
+               "path": "the Horner doubling the combine replaced", "max_abs_err": err}
+        row["ms"] = graph_ms(lambda: PK.fused_double(curve, p), 200)
+        row["call_ms"] = cuda_ms(lambda: PK.fused_double(curve, p), 200)
+        row["bound_ms"], row["bound_by"] = point_bound_ms("double", curve, ("double", p))
+        rows.append(row)
+        log(f"  double {curve_name} {tuple(p.x.shape)} (the Horner doubling the combine "
+            f"replaced): bit-equal to the limb reference; {row['ms']:.6f} ms on the device, "
+            f"{row['call_ms']:.6f} ms a call, bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
     return rows
 
 
@@ -925,10 +1020,16 @@ def main() -> int:
 
     log("== phase 7: production PrivateTransfer proofs (the meta's backend)")
     counts, recorder = prove_production(record=True)
-    for group, ops in (("field", ("mul", "add", "sub")), ("point", ("add", "double", "columns", "fold"))):
+    for group, ops in (("field", ("mul", "add", "sub")),
+                       ("point", ("add", "columns", "fold", "combine"))):
         for op in ops:
             if counts[group][op] <= 0:
                 raise AssertionError(f"the main path launched no {group} {op} kernel")
+    # two proofs of four MSMs: 4 folds and 1 combine an MSM; the point-op
+    # kernel only merges the bucket batches (2 adds an MSM)
+    point_ops = sum(counts["point"][op] for op in ("add", "madd", "double"))
+    if counts["point"]["fold"] != 32 or counts["point"]["combine"] != 8 or point_ops > 16:
+        raise AssertionError(f"unexpected point-kernel launches over two proofs: {counts['point']}")
     log("  the point kernels at the shapes of the first proof: checked, then timed")
     point_rows = time_recorded(recorder, point_err)
     del recorder
@@ -992,9 +1093,11 @@ def main() -> int:
         "point": {op: counts["point"][op] for op in ("add", "madd", "double")},
         "columns": counts["point"]["columns"],
         "fold": counts["point"]["fold"],
+        "combine": counts["point"]["combine"],
     }
     for kind, name in (("point", "point_kernels.point_op"), ("columns", "point_kernels.accumulate_columns"),
-                       ("fold", "point_kernels.fold_columns")):
+                       ("fold", "point_kernels.fold_columns"),
+                       ("combine", "point_kernels.combine_windows")):
         main_row = next(r for r in point_rows[kind] if r.get("main"))
         launches = point_launches[kind]
         kernels.append({

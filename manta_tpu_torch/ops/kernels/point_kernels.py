@@ -1,12 +1,15 @@
-"""Whole-formula curve kernels: point op, bucket column, fold; CUDA and plain.
+"""Whole-formula curve kernels: point op, bucket column, fold, window combine;
+CUDA and plain.
 
 Replaces the JAX package's Pallas TPU kernels of
 `manta_tpu/ops/pallas/point_kernels.py`: `_point_op` (public `fused_add`,
 `fused_madd`, `fused_double`), `_column_call` (`accumulate_columns`) and
 `_fold_call` (`fold_columns`), with the backend object `FusedCurveOps` /
-`fused_curve_ops_for`. The kernel source is `manta_tpu_torch/csrc/
-point_kernels.cu` (formulas in `point_ops.cuh`); its header gives the bound
-on the H100 and what the design does about it.
+`fused_curve_ops_for`; `combine_windows` runs the MSM's window sums and
+Horner loop (point-op calls in the JAX package) as one kernel. The kernel
+source is `manta_tpu_torch/csrc/point_kernels.cu` (formulas in
+`point_ops.cuh`); its header gives the bound on the H100 and what the
+design does about it.
 
 Layout at the boundary, as in the JAX package: coordinates limb-major int32,
 `(L, ...)` for G1 and `(2, L, ...)` for G2, Montgomery form, lazy [0, 2p);
@@ -23,15 +26,18 @@ The plain versions run the port's own `CurveOps.add / madd / double`
 operands — over a per-lane representation of the coordinates as Python
 integers (`_LaneInts`), with the field ops defined as the integers that the
 limb functions and the kernel compute: a·b·R⁻¹ mod R by Montgomery without
-a final subtract, add and sub against 2p. The column and fold versions are
-Python loops over K of those formulas with `select`, written from the JAX
-kernel bodies. Integers per lane keep the K-step loops cheap on the CPU,
-where a limb-tensor field op costs about the same at any small lane count;
-the CPU tests hold them against the limb `CurveOps` and the JAX kernels, and
-`chip_smoke.py` holds the kernels against them bit for bit. The same column
-and fold loops also run over the limb `CurveOps` on the tensors' own device
-(`limb_accumulate_columns`, `limb_fold_columns`): on the card that is the
-reference at the prover's shapes, where the host integers are too slow.
+a final subtract, add and sub against 2p. The column, fold and combine
+versions are Python loops of those formulas with `select`: the column's over
+K, written from the JAX kernel body, the fold's the kernel's segmented scan
+(`_fold_scan`: chunks of a lane's steps, batched over the chunks), and the
+combine's `msm.window_sums` and `msm.horner`. Integers per lane keep the
+loops cheap on the CPU, where a limb-tensor field op costs about the same at
+any small lane count; the CPU tests hold them against the limb `CurveOps`
+and the JAX kernels, and `chip_smoke.py` holds the kernels against them bit
+for bit. The same loops also run over the limb `CurveOps` on the tensors'
+own device (`limb_accumulate_columns`, `limb_fold_columns`,
+`limb_combine_windows`): on the card that is the reference at the prover's
+shapes, where the host integers are too slow.
 
 The kernels are built at first use with `nvcc`, one shared library per curve
 (`build.py`), into `build/torch_kernels/`.
@@ -48,18 +54,19 @@ import torch
 
 from manta_tpu_torch.fields import LIMB_BITS, FieldSpec
 from manta_tpu_torch.ops import curve as C
+from manta_tpu_torch.ops import msm as M
 from manta_tpu_torch.ops.curve import JacobianPoint
 from manta_tpu_torch.ops.kernels import build as B
 from manta_tpu_torch.utils import hostmath
 
 #: launches of the CUDA kernels, counted by the wrappers: the point-op kernel
-#: by formula, the column and the fold kernel
-LAUNCHES = {"add": 0, "madd": 0, "double": 0, "columns": 0, "fold": 0}
+#: by formula, the column, fold and combine kernels
+LAUNCHES = {"add": 0, "madd": 0, "double": 0, "columns": 0, "fold": 0, "combine": 0}
 
 #: curve name -> the MANTA_CURVE id of `point_kernels.cu`
 KERNEL_CURVES = {"bn254_g1": 0, "bn254_g2": 1, "bls12_381_g1": 2, "bls12_381_g2": 3}
 #: the MANTA_KERNEL ids of `point_kernels.cu`: one object each
-KERNELS = ("add", "madd", "double", "columns", "fold")
+KERNELS = ("add", "madd", "double", "columns", "fold", "combine")
 
 SOURCE = B.CSRC / "point_kernels.cu"
 
@@ -87,8 +94,9 @@ def _lib(curve_name: str) -> ctypes.CDLL:
         getattr(lib, f"manta_point_{which}").argtypes = [*[ptr] * 9, i64, ptr]
     lib.manta_accumulate_columns.argtypes = [*[ptr] * 7, i32, i64, ptr]
     lib.manta_fold_columns.argtypes = [*[ptr] * 10, i32, i64, ptr]
+    lib.manta_combine_windows.argtypes = [*[ptr] * 9, i32, i32, i32, ptr]
     for which in ("point_add", "point_madd", "point_double", "accumulate_columns",
-                  "fold_columns"):
+                  "fold_columns", "combine_windows"):
         getattr(lib, f"manta_{which}").restype = ctypes.c_int
     return lib
 
@@ -281,23 +289,109 @@ def _column_loop(cops, X, Y, q_inf, heads, step) -> list:
     return outs
 
 
-def _fold_loop(cops, Q: JacobianPoint, heads, step) -> tuple:
-    """The fold kernel's loop: per lane, A = q[k] if head[k] else add(A, q[k]);
-    B = add(B, A); both after every step (`point_kernels.py:762-781` of the
-    JAX package)."""
+def fold_threads(steps: int) -> int:
+    """Threads that share one lane of the fold kernel for a K-step stream
+    (`fold_threads` of point_ops.cuh): a power of two, at most 32, with
+    chunks of 4 to 8 steps (one thread where K < 8)."""
+    t = 1
+    while t < 32 and 8 * t <= steps:
+        t *= 2
+    return t
+
+
+def _cat(a, b):
+    """a and b joined along the axis of a lane's threads (-2)."""
+    if isinstance(a, np.ndarray):
+        return np.concatenate([a, b], axis=-2)
+    return torch.cat([a, b], dim=-2)
+
+
+def _shift_up(v, d: int):
+    """Thread t gets thread t−d's value, threads t < d their own
+    (`__shfl_up_sync`)."""
+    return _cat(v[..., :d, :], v[..., :-d, :])
+
+
+def _chunks(v, threads: int, chunk: int):
+    """A stream with its K steps on axis 0 (tensors, (K, *E, R) and masks
+    (K, R)) or -2 (integers per lane, (*E, K, R)) -> (*E, chunk, threads,
+    R): [..., i, t, :] is step t·chunk + i, zeros past K."""
+    if isinstance(v, np.ndarray):
+        pad = np.zeros((*v.shape[:-2], threads * chunk - v.shape[-2], v.shape[-1]), v.dtype)
+        w = np.concatenate([v, pad], axis=-2)
+        return np.swapaxes(w.reshape(*v.shape[:-2], threads, chunk, v.shape[-1]), -3, -2)
+    w = torch.cat([v, v.new_zeros((threads * chunk - v.shape[0], *v.shape[1:]))])
+    return w.reshape(threads, chunk, *v.shape[1:]).movedim((0, 1), (-2, -3))
+
+
+def _unchunk(steps: list, K: int):
+    """Inverse of `_chunks` on a point coordinate: the list of its steps i
+    -> the stream, (K, *E, R) tensors or (*E, K, R) integers."""
+    if isinstance(steps[0], np.ndarray):
+        w = np.stack(steps, axis=-2)
+        return w.reshape(*w.shape[:-3], -1, w.shape[-1])[..., :K, :]
+    w = torch.stack(steps, dim=-2)
+    return w.reshape(*w.shape[:-3], -1, w.shape[-1])[..., :K, :].movedim(-2, 0).contiguous()
+
+
+def _fold_scan(cops, Q: JacobianPoint, head, sums: bool):
+    """The fold kernel's segmented scan (`fold_group` of point_ops.cuh) over
+    `cops`' formulas, batched over the lanes and over the `fold_threads(K)`
+    chunks of each lane: the same additions on the same operands, so the
+    same coordinates. Per lane, A[k] = q[k] if head[k] else A[k-1] + q[k],
+    and with `sums` B = the sum of A[k]. With one thread a lane it is the
+    TPU kernel's sequential loop (`point_kernels.py:762-781` of the JAX
+    package). Returns (the A stream, B or None)."""
     o = cops.ops
-    x0 = step(Q.x, 0)
-    inf = JacobianPoint(o.zeros_like(x0), o.one_like(x0), o.zeros_like(x0))
-    a, b = inf, inf
-    a_out, b_out = [], []
-    for k in range(len(heads)):
-        q = JacobianPoint(*(step(c, k) for c in Q))
-        added = cops.add(a, q)
-        a = JacobianPoint(*(o.select(heads[k], u, v) for u, v in zip(q, added)))
-        b = cops.add(b, a)
-        a_out.append(a)
-        b_out.append(b)
-    return a_out, b_out
+    K = head.shape[0]
+    T = fold_threads(K)
+    c = -(-K // T)
+    X = [_chunks(v, T, c) for v in Q]
+    H = _chunks(head, T, c)
+    if isinstance(head, np.ndarray):
+        t_ids = np.arange(T)[:, None]
+    else:
+        t_ids = torch.arange(T, device=head.device)[:, None]
+    valid = [t_ids * c + i < K for i in range(c)]
+
+    def sel(mask, p, q):
+        return JacobianPoint(*(o.select(mask, u, v) for u, v in zip(p, q)))
+
+    def step(i):
+        return JacobianPoint(*(v[..., i, :, :] for v in X))
+
+    def walk(a, b):  # a chunk: A = q if head else A + q; B += A
+        outs = []
+        for i in range(c):
+            q = step(i)
+            a = sel(valid[i], sel(H[i], q, cops.add(a, q)), a)
+            outs.append(a)
+            if b is not None:
+                b = sel(valid[i], cops.add(b, a), b)
+        return a, b, outs
+
+    inf = cops.infinity_like(step(0))
+    # 1. each chunk from infinity: (any head, its last A)
+    a, _, _ = walk(inf, None)
+    f = H[0] != H[0]
+    for i in range(c):
+        f = f | H[i]
+    # 2. inclusive scan of the chunk totals, (f1, P1) o (f2, P2) = (f1 | f2, f2 ? P2 : P1 + P2)
+    d = 1
+    while d < T:
+        later = t_ids >= d
+        a = sel(later & ~f, cops.add(JacobianPoint(*(_shift_up(u, d) for u in a)), a), a)
+        f = f | (later & _shift_up(f, d))
+        d *= 2
+    # 3. each chunk again from the total of the chunks before it
+    carry = JacobianPoint(*(_shift_up(u, 1) for u in a))
+    _, b, outs = walk(sel(t_ids == 0, inf, carry), inf if sums else None)
+    # 4. B = the sum of the chunks' sums, pairwise
+    while b is not None and b.x.shape[-2] > 1:
+        b = cops.add(JacobianPoint(*(u[..., 0::2, :] for u in b)),
+                     JacobianPoint(*(u[..., 1::2, :] for u in b)))
+    a_stream = JacobianPoint(*(_unchunk([pt[i] for pt in outs], K) for i in range(3)))
+    return a_stream, None if b is None else JacobianPoint(*(u[..., 0, :] for u in b))
 
 
 def plain_point_op(curve, which: str, p: JacobianPoint, q: JacobianPoint = None):
@@ -322,13 +416,23 @@ def plain_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
     return _stream_from_ints(curve, outs, px.device)
 
 
-def plain_fold_columns(curve, qx, qy, qz, head):
-    """Per lane: A = q[k] if head[k] else add(A, q[k]); B = add(B, A); both
-    streams (K, *E, R)."""
+def plain_fold_columns(curve, qx, qy, qz, head, sums: bool = False):
+    """Per lane: A = q[k] if head[k] else add(A, q[k]), the stream (K, *E, R);
+    with `sums`, B = the sum of the A[k], (*E, R). The additions of the
+    kernel's scan (`_fold_scan`). Returns (A, B or None)."""
     Q = JacobianPoint(*(_to_ints(_steps_last(c), curve.is_ext) for c in (qx, qy, qz)))
     heads = head.detach().cpu().numpy() != 0
-    a_out, b_out = _fold_loop(_lane_curve(curve), Q, heads, _step)
-    return _stream_from_ints(curve, a_out, qx.device), _stream_from_ints(curve, b_out, qx.device)
+    a, b = _fold_scan(_lane_curve(curve), Q, heads, sums)
+    a = JacobianPoint(*map(_steps_first, _point_from_ints(curve, a, qx.device)))
+    return a, None if b is None else _point_from_ints(curve, b, qx.device)
+
+
+def plain_combine_windows(curve, a, b, doublings: int, window_bits: int) -> JacobianPoint:
+    """The MSM's window combine (`msm.window_sums`, then `msm.horner`) on the
+    weighted fold's level-2 rows a, b (*E, 2W): one lane, (*E, 1)."""
+    lc = _lane_curve(curve)
+    sums = M.window_sums(lc, _point_to_ints(curve, a), _point_to_ints(curve, b), doublings)
+    return _point_from_ints(curve, M.horner(lc, sums, window_bits), a.x.device)
 
 
 def limb_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
@@ -341,12 +445,18 @@ def limb_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
     return _stream_from_tensors(outs)
 
 
-def limb_fold_columns(curve, qx, qy, qz, head):
+def limb_fold_columns(curve, qx, qy, qz, head, sums: bool = False):
     """`plain_fold_columns` through the limb `CurveOps` on the tensors' own
     device."""
-    a_out, b_out = _fold_loop(C.curve_ops_for(curve, "limb"), JacobianPoint(qx, qy, qz),
-                              head.bool(), lambda v, k: v[k])
-    return _stream_from_tensors(a_out), _stream_from_tensors(b_out)
+    return _fold_scan(C.curve_ops_for(curve, "limb"), JacobianPoint(qx, qy, qz), head.bool(),
+                      sums)
+
+
+def limb_combine_windows(curve, a, b, doublings: int, window_bits: int) -> JacobianPoint:
+    """`plain_combine_windows` through the limb `CurveOps` on the tensors'
+    own device."""
+    cops = C.curve_ops_for(curve, "limb")
+    return M.horner(cops, M.window_sums(cops, a, b, doublings), window_bits)
 
 
 def plain_add(curve, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
@@ -367,6 +477,7 @@ PLAIN = {
     "double": plain_double,
     "columns": plain_accumulate_columns,
     "fold": plain_fold_columns,
+    "combine": plain_combine_windows,
 }
 
 
@@ -487,25 +598,52 @@ def accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
     return out
 
 
-def fold_columns(curve, qx, qy, qz, head):
+def fold_columns(curve, qx, qy, qz, head, sums: bool = False):
     """Segmented sums over the projective stream `qx, qy, qz` (K, *E, R) with
-    `head` (K, R): the post-step accumulator stream A and the suffix stream B
-    (B[k] = sum of A[k'] for k' <= k). See `plain_fold_columns`."""
+    `head` (K, R): the post-step accumulator stream A, and with `sums` B =
+    the sum of A[k] over k, (*E, R) (else None). See `plain_fold_columns`."""
     K, R = _check_stream(curve, (qx, qy, qz), (head,))
     if not _on_cuda(curve, (qx, qy, qz)):
-        return plain_fold_columns(curve, qx, qy, qz, head)
+        return plain_fold_columns(curve, qx, qy, qz, head, sums)
     if head.device != qx.device:
         raise ValueError("mask and stream on different devices")
     ins = [c.contiguous() for c in (qx, qy, qz)]
     hd = head.to(torch.int32).contiguous()
-    outs = [torch.empty_like(ins[0]) for _ in range(6)]
+    a = [torch.empty_like(ins[0]) for _ in range(3)]
+    b = [ins[0].new_empty(ins[0].shape[1:]) for _ in range(3)] if sums else None
     if K and R:
         err = _lib(curve.name).manta_fold_columns(
-            *(t.data_ptr() for t in ins), hd.data_ptr(),
-            *(t.data_ptr() for t in outs), K, R, _stream())
+            *(t.data_ptr() for t in ins), hd.data_ptr(), *(t.data_ptr() for t in a),
+            *((t.data_ptr() for t in b) if sums else (None,) * 3), K, R, _stream())
         _check_launch(err, "fold")
         LAUNCHES["fold"] += 1
-    return JacobianPoint(*outs[:3]), JacobianPoint(*outs[3:])
+    return JacobianPoint(*a), None if b is None else JacobianPoint(*b)
+
+
+def combine_windows(curve, a: JacobianPoint, b: JacobianPoint, doublings: int,
+                    window_bits: int) -> JacobianPoint:
+    """The MSM's last steps in one launch: from the weighted fold's level-2
+    rows a, b (*E, 2W) (lanes [T | B], `msm._weighted_fold_fused`), the
+    window sums S_w = 2^doublings·(b[w] − a[w]) + a[W + w] and Horner's rule
+    over them, window_bits doublings a window; one lane, (*E, 1). See
+    `plain_combine_windows`."""
+    edims = _edims(curve)
+    lanes = a.x.shape[-1]
+    if any(tuple(c.shape) != (*edims, lanes) for c in (*a, *b)) or lanes % 2 or not (
+        2 <= lanes <= 128
+    ):
+        raise ValueError(f"expected (*E, 2W) = ({', '.join(map(str, edims))}, 2W) rows, "
+                         f"2 <= 2W <= 128, got {[tuple(c.shape) for c in (*a, *b)]}")
+    if not _on_cuda(curve, (*a, *b)):
+        return plain_combine_windows(curve, a, b, doublings, window_bits)
+    ins = [c.contiguous() for c in (*a, *b)]
+    out = [ins[0].new_empty((*edims, 1)) for _ in range(3)]
+    err = _lib(curve.name).manta_combine_windows(
+        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out), lanes // 2, doublings,
+        window_bits, _stream())
+    _check_launch(err, "combine")
+    LAUNCHES["combine"] += 1
+    return JacobianPoint(*out)
 
 
 # ---------------------------------------------------------------------------
@@ -519,8 +657,8 @@ class FusedCurveOps(C.CurveOps):
 
     `ops` stays the limb `CoordOps` / `Fq2Ops` (select, is_zero, neg for the
     MSM's glue); add / madd / double launch one kernel each, and the MSM
-    finds `run_columns` / `run_fold_columns` and runs its bucket loop and
-    folds as single launches (`ops/msm.py`)."""
+    finds `run_columns` / `run_fold_columns` / `combine_windows` and runs its
+    bucket loop, folds and window combine as single launches (`ops/msm.py`)."""
 
     def add(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
         return fused_add(self.curve, p, q)
@@ -534,8 +672,11 @@ class FusedCurveOps(C.CurveOps):
     def run_columns(self, px, py, qinf, head) -> JacobianPoint:
         return accumulate_columns(self.curve, px, py, qinf, head)
 
-    def run_fold_columns(self, qx, qy, qz, head):
-        return fold_columns(self.curve, qx, qy, qz, head)
+    def run_fold_columns(self, qx, qy, qz, head, sums: bool = False):
+        return fold_columns(self.curve, qx, qy, qz, head, sums)
+
+    def combine_windows(self, a, b, doublings: int, window_bits: int) -> JacobianPoint:
+        return combine_windows(self.curve, a, b, doublings, window_bits)
 
 
 @functools.lru_cache(maxsize=None)

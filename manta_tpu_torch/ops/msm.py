@@ -25,8 +25,13 @@ Port of `manta_tpu/ops/msm.py`, limb and fused backends:
    through the fold kernel (`_fold_trailing_fused`, `_weighted_fold_fused`);
    otherwise via b = 2^c2·h + l — row and column sums of the (2^c1, 2^c2)
    bucket matrix by pairwise halving, then two small weighted sums (suffix
-   scans). Both batched over all windows.
-4. **Window combine**: Horner over windows (c doublings per window).
+   scans). Both batched over all windows. The fold kernel adds in another
+   order than the JAX package's (a segmented scan), so the fold path's
+   Jacobian coordinates differ from the JAX package's; its points do not.
+4. **Window combine**: Horner over windows (c doublings per window),
+   `horner`. On the fold path the window sums (`window_sums`) and Horner's
+   rule are one launch of the fused backend's combine kernel
+   (`combine_windows`).
 
 On the limb backend every field operation is one launch of the field kernel
 on a CUDA tensor (`ops/kernels/field_kernels.py`); on the fused backend each
@@ -407,7 +412,7 @@ def _fold_trailing_fused(
         ct = _map(val, lambda a: _merge_lanes(_chunk_t(a, k)))
         first = torch.ones((1, kt.shape[1]), dtype=torch.bool, device=dev)
         head = torch.cat([first, kt[1:] != kt[:-1]])
-        astream, _ = cops.run_fold_columns(ct.x, ct.y, ct.z, head)
+        astream, _ = cops.run_fold_columns(ct.x, ct.y, ct.z, head, False)
         last = torch.ones((rows, 1), dtype=torch.bool, device=dev)
         end_seq = torch.cat([key[:, :-1] != key[:, 1:], last], -1)
         end_flat = _merge_lanes(_chunk_t(end_seq, k)).reshape(-1)
@@ -437,17 +442,16 @@ def _fold_trailing_fused(
     return unflat(b1), unflat(b2)
 
 
-def _weighted_fold_fused(
-    cops: C.CurveOps, buckets: JacobianPoint, num_buckets: int, signed: bool
-) -> JacobianPoint:
-    """sum_{b>=1} b·S_b per window through the fold kernel.
+def _weighted_fold_fused(cops: C.CurveOps, buckets: JacobianPoint, num_buckets: int, signed: bool):
+    """sum_{b>=1} b·S_b per window through the fold kernel, up to its last
+    step (`window_sums`).
 
     buckets: (*E, W, num_buckets). Split b = j·Kw + m' (m' in [1, Kw]):
     feeding each kernel lane its buckets in DESCENDING order makes the
-    kernel's suffix accumulator B end at sum_m' m'·S and A at T_j = sum S.
-    Then sum_b b·S_b = Kw·sum_j j·T_j + sum_j B_j, the level-2 sums by one
-    more fold launch over lanes [T | B] (2W lanes; the JAX package pads them
-    to 128). Returns (*E, W, 1), the layout the Horner combine takes."""
+    kernel's sum B end at sum_m' m'·S and A at T_j = sum S. Then sum_b b·S_b
+    = Kw·sum_j j·T_j + sum_j B_j, the level-2 sums by one more fold launch
+    over lanes [T | B] (2W lanes; the JAX package pads them to 128). Returns
+    that launch's last A row and its B, (*E, 2W) each, and log2(Kw)."""
     num_windows = buckets.x.shape[-2]
     m = num_buckets - 1 if signed else num_buckets  # covered b range [1, M]
     rw = 128
@@ -462,8 +466,8 @@ def _weighted_fold_fused(
         return _merge_lanes(r)
 
     heads = torch.zeros((kw, num_windows * rw), dtype=torch.bool, device=buckets.x.device)
-    astr, bstr = cops.run_fold_columns(*map(stream1, buckets), heads)
-    t_sum, b_sum = _map(astr, lambda a: a[-1]), _map(bstr, lambda a: a[-1])  # (*E, W*Rw)
+    astr, b_sum = cops.run_fold_columns(*map(stream1, buckets), heads, True)
+    t_sum = _map(astr, lambda a: a[-1])  # (*E, W*Rw)
 
     def stream2(a_t, a_b):  # per window: T descending j, then B -> (Rw, *E, 2W)
         rt = a_t.reshape(*a_t.shape[:-1], num_windows, rw).flip(-1)
@@ -471,18 +475,36 @@ def _weighted_fold_fused(
         return torch.cat([rt, rb], -2).movedim(-1, 0).contiguous()
 
     heads2 = torch.zeros((rw, 2 * num_windows), dtype=torch.bool, device=buckets.x.device)
-    astr2, bstr2 = cops.run_fold_columns(
-        *(stream2(t, b) for t, b in zip(t_sum, b_sum)), heads2
+    astr2, fin_b = cops.run_fold_columns(
+        *(stream2(t, b) for t, b in zip(t_sum, b_sum)), heads2, True
     )
-    fin_a, fin_b = _map(astr2, lambda a: a[-1]), _map(bstr2, lambda a: a[-1])
-    a2 = _map(fin_a, lambda a: a[..., :num_windows])  # sum_j T_j
-    b2 = _map(fin_b, lambda a: a[..., :num_windows])  # sum_j (j+1) T_j
-    a3 = _map(fin_a, lambda a: a[..., num_windows:])  # sum_j B_j
-    # S_w = Kw·(B2 − A2) + A3
+    return _map(astr2, lambda a: a[-1]), fin_b, kw.bit_length() - 1
+
+
+def window_sums(cops: C.CurveOps, a: JacobianPoint, b: JacobianPoint, doublings: int):
+    """The window sums S_w = 2^doublings·(B2 − A2) + A3 from the weighted
+    fold's level-2 rows a, b (*E, 2W): A2 = sum_j T_j = a[..., :W], B2 =
+    sum_j (j+1)·T_j = b[..., :W], A3 = sum_j B_j = a[..., W:]. Returns
+    (*E, W, 1), the layout `horner` takes."""
+    num_windows = a.x.shape[-1] // 2
+    a2 = _map(a, lambda t: t[..., :num_windows])
+    b2 = _map(b, lambda t: t[..., :num_windows])
+    a3 = _map(a, lambda t: t[..., num_windows:])
     d = cops.add(b2, cops.neg(a2))
-    for _ in range(kw.bit_length() - 1):
+    for _ in range(doublings):
         d = cops.double(d)
-    return _map(cops.add(d, a3), lambda a: a[..., None])
+    return _map(cops.add(d, a3), lambda t: t[..., None])
+
+
+def horner(cops: C.CurveOps, wins: JacobianPoint, window_bits: int) -> JacobianPoint:
+    """Horner from the most significant window down over wins (*E, W, 1):
+    acc = W_last; for w = last-1..0: acc = 2^c·acc + W_w. Returns (*E, 1)."""
+    acc = _map(wins, lambda a: a[..., -1, :])
+    for w in range(wins.x.shape[-2] - 2, -1, -1):
+        for _ in range(window_bits):
+            acc = cops.double(acc)
+        acc = cops.add(acc, _map(wins, lambda a: a[..., w, :]))
+    return acc
 
 
 def _tree_reduce_last(cops: C.CurveOps, pts: JacobianPoint) -> JacobianPoint:
@@ -602,22 +624,14 @@ def msm(
         )
         b1, b2 = _fold_trailing_fused(cops, acc_last, d_t[-1], d_t[0], num_buckets)
         buckets = cops.add(cops.add(bucket_a, b1), b2)
-        wins = _weighted_fold_fused(cops, buckets, num_buckets, signed)
+        a, b, doublings = _weighted_fold_fused(cops, buckets, num_buckets, signed)
+        return cops.combine_windows(a, b, doublings, window_bits)
+    buckets = _bucket_sums(cops, digits, points, num_buckets, steps, negs)
+    if signed:
+        wins = _weighted_reduce_signed(cops, buckets, window_bits)
     else:
-        buckets = _bucket_sums(cops, digits, points, num_buckets, steps, negs)
-        if signed:
-            wins = _weighted_reduce_signed(cops, buckets, window_bits)
-        else:
-            wins = _weighted_reduce(cops, buckets, window_bits)  # coords (*E, W, 1)
-
-    # Horner from the most significant window down:
-    # acc = W_last; for w = last-1..0: acc = 2^c * acc + W_w
-    acc = _map(wins, lambda a: a[..., -1, :])
-    for w in range(num_windows - 2, -1, -1):
-        for _ in range(window_bits):
-            acc = cops.double(acc)
-        acc = cops.add(acc, _map(wins, lambda a: a[..., w, :]))
-    return acc
+        wins = _weighted_reduce(cops, buckets, window_bits)  # coords (*E, W, 1)
+    return horner(cops, wins, window_bits)
 
 
 def msm_host_oracle(curve, scalars, points):

@@ -3,12 +3,16 @@
 MSM results are compared after `decode_points` with `msm_host_oracle` (the
 JAX package's host big-int MSM) at the shapes of the JAX package's
 `TestFoldReduction` (n = 2048, window 9, 16 column steps: R = 128 lanes, so
-the fold path runs) and on BN254 G1. The stages of the fold path —
-`_run_ends_compact`, `_bucket_sums_fused` (one column launch over all
-windows here, one per window there), `_fold_trailing_fused` and
-`_weighted_fold_fused` — are held bit for bit against the JAX functions
-called eagerly on TOY (their kernels in Pallas interpret mode). Inputs come from numpy seeds; tolerance: none (exact
-integer arithmetic). Everything runs on CPU tensors (the plain versions).
+the fold path runs) and on BN254 G1. The stages of the fold path are held
+against the JAX functions called eagerly on TOY (their kernels in Pallas
+interpret mode): `_run_ends_compact` and `_bucket_sums_fused` (one column
+launch over all windows here, one per window there) bit for bit;
+`_fold_trailing_fused` and `_weighted_fold_fused` after `decode_points`,
+because the port's fold kernel is a segmented scan that adds in another
+order, and bit for bit with the scan cut to one thread per lane (the JAX
+kernel's sequential order). Inputs come from numpy seeds; tolerance: none
+(exact integer arithmetic). Everything runs on CPU tensors (the plain
+versions).
 """
 
 import functools
@@ -26,6 +30,7 @@ from manta_tpu_torch.ops import curve as C
 from manta_tpu_torch.ops import field_ops as F
 from manta_tpu_torch.ops import msm as M
 from manta_tpu_torch.ops.curve import JacobianPoint
+from manta_tpu_torch.ops.kernels import point_kernels as PK
 from manta_tpu_torch.utils import hostmath as TH
 
 # small tensors: one intra-op thread per test worker is all they use well
@@ -100,6 +105,24 @@ def test_toy_fused_without_fold_path(window_bits, steps, n):
     _fused_msm(JH.TOY_G1, TH.TOY_G1, _toy_points(rng, n), scalars_np(rng, n, r), window_bits, steps)
 
 
+def test_toy_fold_path_runs_the_fold_and_combine_kernels(monkeypatch):
+    """The fold path reaches the fused backend's fold (4 calls: two levels
+    of trailing partials, two of the weighted sum) and combine (1 call)
+    functions, which run their plain versions on CPU tensors, and the MSM
+    equals `msm_host_oracle`."""
+    calls = {"fold": 0, "combine": 0}
+    for name, key in (("fold_columns", "fold"), ("combine_windows", "combine")):
+        def counted(*args, _fn=getattr(PK, name), _key=key):
+            calls[_key] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(PK, name, counted)
+    rng = np.random.default_rng(42)
+    r = JH.TOY_G1.scalar_field.modulus
+    _fused_msm(JH.TOY_G1, TH.TOY_G1, _toy_points(rng, 2048), scalars_np(rng, 2048, r), 9, 16)
+    assert calls == {"fold": 4, "combine": 1}
+
+
 def test_bn254_g1_fold_path_matches_closed_form():
     """Points (i+1)·G, as `bench.py` checks: the MSM is (sum (i+1)·s_i)·G,
     one host scalar multiplication instead of the oracle's 2048."""
@@ -136,15 +159,37 @@ def _assert_points_equal(got: JacobianPoint, want):
         np.testing.assert_array_equal(F.to_numpy(g), np.asarray(w))
 
 
-def test_fold_trailing_fused_bit_equal_to_jax():
+_TOY = C.curve_ops_for(TH.TOY_G1, "limb")
+
+
+def _assert_decoded_equal(got: JacobianPoint, want):
+    """Equal points after `decode_points`, lane by lane over any batch."""
+    def flat(pt):
+        return JacobianPoint(*(c.reshape(c.shape[0], -1) for c in pt))
+
+    want = JacobianPoint(*(F.as_tensor(np.array(w), "cpu") for w in want))
+    assert _TOY.decode_points(flat(got)) == _TOY.decode_points(flat(want))
+
+
+def _sequential_fold(monkeypatch):
+    """Cut the fold's scan to one thread per lane: the JAX kernel's order."""
+    monkeypatch.setattr(PK, "fold_threads", lambda steps: 1)
+
+
+@pytest.mark.parametrize("threads", ["scan", "sequential"])
+def test_fold_trailing_fused_equal_to_jax_after_decode(threads, monkeypatch):
     """W = 2 windows of R = 256 lanes (two chunks per level-1 lane), digits
-    with long runs so that partials continue across chunks and lanes."""
+    with long runs so that partials continue across chunks and lanes. The
+    level-2 fold (K = 128) scans 32 threads a lane: equal points; cut to one
+    thread, bit for bit."""
     rng = np.random.default_rng(46)
     num_windows, lanes, num_buckets = 2, 256, 129
     arrs, acc = _toy_jacobian(rng, (num_windows, lanes))
     d = np.sort(rng.integers(0, num_buckets, (num_windows, 2 * lanes)), axis=-1)
     d[1, :300] = 7  # one bucket over many chunks
     first, last = d[:, 0::2], d[:, 1::2]
+    if threads == "sequential":
+        _sequential_fold(monkeypatch)
     got = M._fold_trailing_fused(
         C.curve_ops_for(TH.TOY_G1, "fused"), acc,
         torch.from_numpy(last), torch.from_numpy(first), num_buckets,
@@ -155,25 +200,33 @@ def test_fold_trailing_fused_bit_equal_to_jax():
         jnp.asarray(last.astype(np.uint32)), jnp.asarray(first.astype(np.uint32)), num_buckets,
     )
     for g, w in zip(got, want):
-        _assert_points_equal(g, w)
+        _assert_decoded_equal(g, w)
+        if threads == "sequential":
+            _assert_points_equal(g, w)
 
 
+@pytest.mark.parametrize("threads", ["scan", "sequential"])
 @pytest.mark.parametrize("signed", [True, False], ids=["signed", "unsigned"])
-def test_weighted_fold_fused_bit_equal_to_jax(signed):
+def test_weighted_fold_fused_equal_to_jax_after_decode(signed, threads, monkeypatch):
     """M = 256 covered buckets: Kw = 2 buckets per lane (one doubling);
-    unsigned adds the phantom top bucket."""
+    unsigned adds the phantom top bucket. The port's function stops at the
+    level-2 rows; `window_sums` gives the JAX function's window sums. Equal
+    points; cut to one thread per lane, bit for bit."""
     rng = np.random.default_rng(47 + signed)
     num_windows = 2
     num_buckets = 257 if signed else 256
     arrs, buckets = _toy_jacobian(rng, (num_windows, num_buckets))
-    got = M._weighted_fold_fused(
-        C.curve_ops_for(TH.TOY_G1, "fused"), buckets, num_buckets, signed
-    )
+    if threads == "sequential":
+        _sequential_fold(monkeypatch)
+    cops = C.curve_ops_for(TH.TOY_G1, "fused")
+    got = M.window_sums(cops, *M._weighted_fold_fused(cops, buckets, num_buckets, signed))
     want = JM._weighted_fold_fused(
         JPK.fused_curve_ops_for(JH.TOY_G1), JC.JacobianPoint(*map(jnp.asarray, arrs)),
         num_buckets, signed,
     )
-    _assert_points_equal(got, want)
+    _assert_decoded_equal(got, want)
+    if threads == "sequential":
+        _assert_points_equal(got, want)
 
 
 def test_run_ends_compact_matches_jax():

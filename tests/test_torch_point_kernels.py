@@ -1,13 +1,17 @@
 """PyTorch port: the fused curve kernels' plain versions vs the JAX package.
 
-`ops/kernels/point_kernels.py` holds the CUDA point-op, column and fold
-kernels and their plain versions; on CPU tensors the public functions take
-the plain versions. They are held here, bit for bit on the raw limb arrays,
-against the JAX package's Pallas kernels (`manta_tpu/ops/pallas/
-point_kernels.py`) in interpret mode on the TOY curve, against the port's
-limb `CurveOps` on BN254 and BLS12-381 G1/G2, and, after `decode_points`,
-against `hostmath`. Inputs come from numpy seeds and include the edge lanes
-P+P, P+(−P), P+∞, ∞+Q and ∞+∞. Tolerance: none (exact integers).
+`ops/kernels/point_kernels.py` holds the CUDA point-op, column, fold and
+combine kernels and their plain versions; on CPU tensors the public
+functions take the plain versions. They are held here, bit for bit on the
+raw limb arrays, against the JAX package's Pallas kernels (`manta_tpu/ops/
+pallas/point_kernels.py`) in interpret mode on the TOY curve, against the
+port's limb `CurveOps` on BN254 and BLS12-381 G1/G2, and, after
+`decode_points`, against `hostmath`. The fold is a segmented scan that adds
+in another order than the JAX kernel: its points are held after
+`decode_points` against the JAX kernel and the sequential fold, and with one
+thread per lane (the sequential order) bit for bit. Inputs come from numpy
+seeds and include the edge lanes P+P, P+(−P), P+∞, ∞+Q and ∞+∞.
+Tolerance: none (exact integers).
 """
 
 import functools
@@ -22,6 +26,7 @@ from manta_tpu.ops.pallas import point_kernels as JPK
 from manta_tpu.utils import hostmath as JH
 from manta_tpu_torch.ops import curve as C
 from manta_tpu_torch.ops import field_ops as F
+from manta_tpu_torch.ops import msm as M
 from manta_tpu_torch.ops.curve import JacobianPoint
 from manta_tpu_torch.ops.kernels import build as B
 from manta_tpu_torch.ops.kernels import point_kernels as PK
@@ -132,16 +137,45 @@ def test_toy_accumulate_columns_equal_jax_kernel():
     _assert_equal(got, want)
 
 
-def test_toy_fold_columns_equal_jax_kernel():
+def _decoded_steps(cops, stream):
+    """A (K, *E, R) stream -> the affine points of each step."""
+    return [cops.decode_points(JacobianPoint(*(c[k] for c in stream)))
+            for k in range(stream[0].shape[0])]
+
+
+def _sequential(monkeypatch, fn, *args):
+    """`fn(*args)` with the fold's scan cut to one thread a lane: the
+    sequential order of the JAX kernel."""
+    with monkeypatch.context() as m:
+        m.setattr(PK, "fold_threads", lambda steps: 1)
+        return fn(*args)
+
+
+def test_toy_fold_columns_equal_jax_kernel(monkeypatch):
+    """The JAX kernel writes A's and B's streams; the port writes A's stream
+    and B's last row. With one thread per lane (the sequential order) they
+    are bit-equal; at K = 8 the kernel's scan runs 2 threads per lane, and
+    its points equal the JAX kernel's after `decode_points`."""
     rng = np.random.default_rng(53)
     K, R = 8, 128
     q = _toy_stream(rng, K, R, jacobian=True)
     head, _ = _masks(rng, K, R)
-    got_a, got_b = PK.fold_columns(TH.TOY_G1, *(F.as_tensor(c, "cpu") for c in q),
-                                   torch.from_numpy(head))
+    tq = [F.as_tensor(c, "cpu") for c in q]
     want_a, want_b = JPK.fold_columns(JH.TOY_G1, *map(jnp.asarray, q), jnp.asarray(head))
-    _assert_equal(got_a, want_a)
-    _assert_equal(got_b, want_b)
+    seq_a, seq_b = _sequential(monkeypatch, PK.plain_fold_columns, TH.TOY_G1, *tq,
+                               torch.from_numpy(head), True)
+    _assert_equal(seq_a, want_a)
+    _assert_equal(seq_b, [np.asarray(c)[-1] for c in want_b])
+    assert PK.fold_threads(K) == 2
+    got_a, got_b = PK.fold_columns(TH.TOY_G1, *tq, torch.from_numpy(head), True)
+    limb = C.curve_ops_for(TH.TOY_G1, "limb")
+    jax_a = JacobianPoint(*(F.as_tensor(np.array(c), "cpu") for c in want_a))
+    assert _decoded_steps(limb, got_a) == _decoded_steps(limb, jax_a)
+    assert limb.decode_points(got_b) == limb.decode_points(
+        JacobianPoint(*(F.as_tensor(np.array(c)[-1], "cpu") for c in want_b)))
+    no_b_a, no_b = PK.fold_columns(TH.TOY_G1, *tq, torch.from_numpy(head))
+    assert no_b is None
+    _assert_equal(no_b_a, _numpy(got_a))
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +212,7 @@ def test_plain_columns_and_fold_match_hostmath(name):
     sums on the host."""
     jcurve, tcurve = CURVES[name]
     rng = np.random.default_rng(55)
-    K, R = 5, 6
+    K, R = 9, 6  # the fold scans 2 chunks a lane
     pts = host_points(jcurve, rng, K * R)
     head, _ = _masks(rng, K, R)
     limb = C.curve_ops_for(tcurve, "limb")
@@ -191,7 +225,7 @@ def test_plain_columns_and_fold_match_hostmath(name):
     cols = PK.accumulate_columns(tcurve, stream(enc.x), stream(enc.y),
                                  torch.from_numpy(qinf), torch.from_numpy(head))
     fa, fb = PK.fold_columns(tcurve, *(stream(c) for c in limb.double(enc)),
-                             torch.from_numpy(head))
+                             torch.from_numpy(head), True)
     for j in range(R):
         acc = a = b = None
         for k in range(K):
@@ -200,15 +234,17 @@ def test_plain_columns_and_fold_match_hostmath(name):
             a = jcurve.double(q) if head[k, j] else jcurve.add(a, jcurve.double(q))
             b = jcurve.add(b, a)
             lane = (k, ..., j)
-            for got, want in ((cols, acc), (fa, a), (fb, b)):
+            for got, want in ((cols, acc), (fa, a)):
                 assert limb.decode_points(JacobianPoint(*(c[lane][..., None] for c in got))) == [want]
+        assert limb.decode_points(JacobianPoint(*(c[..., j : j + 1] for c in fb))) == [b]
 
 
 @pytest.mark.parametrize("name", ["bn254_g1", "bls12_381_g2"])
 def test_limb_columns_and_fold_equal_plain(name):
-    """The column and fold loops over the limb `CurveOps` (the reference
-    that `chip_smoke.py` holds the kernels against at the prover's shapes)
-    equal the plain versions, edge masks included."""
+    """The column loop and the fold's scan over the limb `CurveOps` (the
+    reference that `chip_smoke.py` holds the kernels against at the
+    prover's shapes) equal the plain versions, edge masks included; the fold
+    at K = 37, 4 threads a lane of chunks of 10 steps (the last one 7)."""
     jcurve, tcurve = CURVES[name]
     rng = np.random.default_rng(57)
     K, R = 6, 7
@@ -217,16 +253,97 @@ def test_limb_columns_and_fold_equal_plain(name):
     head, qinf = _masks(rng, K, R)
     head, qinf = torch.from_numpy(head), torch.from_numpy(qinf)
 
-    def stream(c):
-        return c.reshape(*c.shape[:-1], R, K).movedim(-1, 0).contiguous()
+    def stream(c, k):
+        return c.reshape(*c.shape[:-1], R, k).movedim(-1, 0).contiguous()
 
-    px, py = stream(enc.x), stream(enc.y)
+    px, py = stream(enc.x, K), stream(enc.y, K)
     _assert_equal(PK.limb_accumulate_columns(tcurve, px, py, qinf, head),
                   _numpy(PK.plain_accumulate_columns(tcurve, px, py, qinf, head)))
-    q = [stream(c) for c in limb.double(enc)]
-    for got, want in zip(PK.limb_fold_columns(tcurve, *q, head),
-                         PK.plain_fold_columns(tcurve, *q, head)):
-        _assert_equal(got, _numpy(want))
+    K = 37
+    enc = limb.encode_points(host_points(jcurve, rng, K * R), "cpu")
+    q = [stream(c, K) for c in limb.double(enc)]
+    head = torch.from_numpy(_masks(rng, K, R)[0])
+    for sums in (False, True):
+        got_a, got_b = PK.limb_fold_columns(tcurve, *q, head, sums)
+        want_a, want_b = PK.plain_fold_columns(tcurve, *q, head, sums)
+        _assert_equal(got_a, _numpy(want_a))
+        if sums:
+            _assert_equal(got_b, _numpy(want_b))
+        else:
+            assert got_b is None and want_b is None
+
+
+def _fold_stream(jcurve, tcurve, rng, K, R):
+    """(K, *E, R) Jacobian streams and a (K, R) head mask with the fold's
+    edge cases: lane 0 alternates q and −q (inner sums at infinity), lane 1
+    repeats one point (inner sums double), lane 2 is all heads, lane 3 has
+    none, lane 4 has a head on every chunk's first step and lane 5 on every
+    chunk's last step; the other lanes random."""
+    pts = host_points(jcurve, rng, K * R, 0.05)
+    g = jcurve.generator
+    for k in range(K):
+        pts[k] = g if k % 2 == 0 else jcurve.neg(g)
+        pts[K + k] = pts[K]
+    limb = C.curve_ops_for(tcurve, "limb")
+    enc = limb.double(limb.encode_points(pts, "cpu"))
+    q = [c.reshape(*c.shape[:-1], R, K).movedim(-1, 0).contiguous() for c in enc]
+    head = rng.random((K, R)) < 0.2
+    chunk = -(-K // PK.fold_threads(K))
+    head[:, 2], head[:, 3] = True, False
+    head[:, 4] = np.arange(K) % chunk == 0
+    head[:, 5] = np.arange(K) % chunk == chunk - 1
+    return q, torch.from_numpy(head)
+
+
+@pytest.mark.parametrize("K", [4, 32, 37, 128])
+@pytest.mark.parametrize("name", ["toy_g1", "bn254_g1", "bn254_g2"])
+def test_fold_scan_equals_sequential_fold(name, K, monkeypatch):
+    """The kernel's scan (1, 8, 4 and 32 threads a lane; 37 is not a
+    multiple of its 4 threads) against the sequential fold of the TPU
+    kernel (one thread a lane): every step of A and B's last row, after
+    `decode_points`."""
+    jcurve, tcurve = {"toy_g1": (JH.TOY_G1, TH.TOY_G1), **CURVES}[name]
+    rng = np.random.default_rng(58 + K)
+    q, head = _fold_stream(jcurve, tcurve, rng, K, 8)
+    got_a, got_b = PK.plain_fold_columns(tcurve, *q, head, True)
+    want_a, want_b = _sequential(monkeypatch, PK.plain_fold_columns, tcurve, *q, head, True)
+    limb = C.curve_ops_for(tcurve, "limb")
+    assert _decoded_steps(limb, got_a) == _decoded_steps(limb, want_a)
+    assert limb.decode_points(got_b) == limb.decode_points(want_b)
+    if PK.fold_threads(K) == 1:
+        _assert_equal(got_a, _numpy(want_a))
+
+
+@pytest.mark.parametrize("name", ["toy_g1", "bn254_g1"])
+def test_combine_windows_equals_python_lines(name):
+    """The combine's plain version (and the CPU path of `combine_windows`) is
+    bit-equal to the window sums and Horner loop of the fold path, written
+    out here over the limb `CurveOps`: W = 20 windows of 13 bits, Kw = 32
+    (5 doublings), as the production MSMs; rows with infinity lanes."""
+    jcurve, tcurve = {"toy_g1": (JH.TOY_G1, TH.TOY_G1), **CURVES}[name]
+    rng = np.random.default_rng(59)
+    W, doublings, c = 20, 5, 13
+    limb = C.curve_ops_for(tcurve, "limb")
+    a = limb.double(limb.encode_points(host_points(jcurve, rng, 2 * W), "cpu"))
+    b = limb.double(limb.encode_points(host_points(jcurve, rng, 2 * W), "cpu"))
+
+    def lanes(pt, lo, hi):
+        return JacobianPoint(*(t[..., lo:hi] for t in pt))
+
+    d = limb.add(lanes(b, 0, W), limb.neg(lanes(a, 0, W)))
+    for _ in range(doublings):
+        d = limb.double(d)
+    sums = limb.add(d, lanes(a, W, 2 * W))
+    acc = lanes(sums, W - 1, W)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            acc = limb.double(acc)
+        acc = limb.add(acc, lanes(sums, w, w + 1))
+    _assert_equal(PK.plain_combine_windows(tcurve, a, b, doublings, c), _numpy(acc))
+    _assert_equal(PK.combine_windows(tcurve, a, b, doublings, c), _numpy(acc))
+    _assert_equal(PK.limb_combine_windows(tcurve, a, b, doublings, c), _numpy(acc))
+    wins = M.window_sums(limb, a, b, doublings)
+    _assert_equal(M.horner(limb, wins, c), _numpy(acc))
 
 
 # ---------------------------------------------------------------------------
@@ -249,8 +366,10 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError, match="masks"):
         PK.accumulate_columns(TH.BN254_G1, stream, stream, torch.zeros(2, 3, dtype=torch.bool),
                               torch.zeros(2, 2, dtype=torch.bool))
+    with pytest.raises(ValueError, match="2W"):
+        PK.combine_windows(TH.BN254_G1, p, JacobianPoint(*(c[..., :2] for c in p)), 1, 13)
     assert PK.library("bn254_g2").units == tuple(
-        ("MANTA_CURVE=1", f"MANTA_KERNEL={k}") for k in range(5))
+        ("MANTA_CURVE=1", f"MANTA_KERNEL={k}") for k in range(6))
 
 
 def test_library_digest_covers_sources_and_headers(tmp_path, monkeypatch):
