@@ -15,39 +15,49 @@ phase catches its own failure:
    lazy values plus the edge values 0, 1, p-1, p, 2p-1; time kernel and
    plain version at the prover's shapes beside the bound (the kernel's device
    time from a replayed CUDA graph, and its time a call from Python);
-4. hold the point-op (add, madd, double), column, fold and combine kernels
-   against their plain versions, bit for bit, on BN254 G1 and G2 and
-   BLS12-381 G1 and G2: point ops over 1000 lanes with the lanes P+P,
-   P+(-P), P+inf, inf+Q and inf+inf; column and fold at K = 16, R = 1024
-   with random head and qinf masks plus an all-head row and an all-infinity
-   column; the fold (with and without B) also at K = 37 (4 threads a lane,
-   37 not a multiple of 4) and K = 128 (32 threads a lane) with an all-head
-   and a no-head lane, heads on the first and on the last step of every
-   chunk, a lane of q, -q, q, ... (inner sums at infinity) and a lane of one
-   point repeated (inner sums double); the combine at 20 windows of 13 bits
-   (5 weight doublings) and at 3 windows;
+4. hold the point-op (add, madd, double), bucket-column, fold, combine and
+   merge kernels against their plain versions, bit for bit, on BN254 G1 and
+   G2 and BLS12-381 G1 and G2: point ops over 1000 lanes with the lanes P+P,
+   P+(-P), P+inf, inf+Q and inf+inf; the bucket column at K = 16 over 4
+   windows of 256 lanes with sorted digits (`bucket_stream`: a lane of q,
+   -q, q, ..., a lane of one point repeated (the doubling branch), one digit
+   across whole lanes, runs ending on a chunk's first and last step, empty
+   buckets, a lane at infinity and a tenth of the points at infinity); the
+   fold at K = 16, R = 1024 with random heads plus an all-head row; the fold
+   (with and without B) also at K = 37 (4 threads a lane, 37 not a multiple
+   of 4) and K = 128 (32 threads a lane) with an all-head and a no-head
+   lane, heads on the first and on the last step of every chunk, a lane of
+   q, -q, q, ... (inner sums at infinity) and a lane of one point repeated
+   (inner sums double); the combine at 20 windows of 13 bits (5 weight
+   doublings) and at 3 windows; the merge over 4000 buckets with 1200
+   level-1 and 300 level-2 partials (`merge_inputs`: partials -a and a,
+   infinite partials, buckets at infinity with other coordinates, dead
+   keys), also against the dense additions it replaced;
 5. the same for the RNS kernels (point op, column, hybrid column) against
    their plain versions, bit for bit, on the four curves, and the RNS
    kernels' table-free zero test against the 2^13-row zero-class table on
    the values k·p and k·p ± 1, k < 8192;
 6. MSMs on the card: BN254 G1 over 65536 points (i+1)·G (window 13, 128
    column steps: the fold path) and over 4096 points (32 lanes: no fold
-   path) on the fused backend, and 4096 points on the limb backend; BN254
+   path, where the point-op kernel adds; its launches are counted there) on
+   the fused backend, and 4096 points on the limb backend; BN254
    G1 over 65536 points on "rns_fused" and "rns_hybrid" and BLS12-381 G1
    over 65536 points on "rns_hybrid" (window 13); each checked against
    (sum (i+1)·s_i mod r)·G as `bench.py` checks;
 7. the production PrivateTransfer prover from `.bench_prover_pt.npz` on the
    backend its meta records (fused), two proofs (r, s) = (7, 9) and (2, 3),
    each verified by the host pairing against `.bench_prover_pt_vk.bin`,
-   with the launch count of every kernel read around that run (fold 16 and
-   combine 4 a proof, at most 8 point ops: the bucket merges); the point
-   kernels' calls of the first proof (point ops, columns, every fold level,
-   the combines) are recorded, each (kernel, curve, shape) held bit for bit
-   against the same formulas through the limb `CurveOps` on the card on the
-   recorded inputs (and at the shape its `kernels` entry reports, against
-   the plain version too), then timed at that shape beside its bound; the
-   single-lane doubling that the combine replaced is timed at the Horner
-   shape as a yardstick;
+   with the launch count of every kernel read around that run (bucket column
+   4, fold 16, combine 4 and merge 4 a proof, no point op); the point
+   kernels' calls of the first proof (bucket columns, every fold level, the
+   combines, the merges) are recorded, each (kernel, curve, shape) held bit
+   for bit against the same formulas through the limb `CurveOps` on the card
+   on the recorded inputs (the merge against the dense additions it
+   replaced; and at the shape its `kernels` entry reports, against the plain
+   version too), then timed at that shape beside its bound; the single-lane
+   doubling that the combine replaced, and the dense point-op addition of
+   the bucket merge that the merge kernel replaced, are timed as
+   yardsticks;
 8. one proof on the limb backend, verified, its launches read around it;
 9. the main path of the RNS slice: the same prover on "rns_hybrid" (its
    limb points as they are), two proofs verified, launches read around
@@ -92,10 +102,12 @@ REPLACES = "manta_tpu/ops/pallas/field_kernels.py:164"
 POINT_SOURCE = "manta_tpu_torch/csrc/point_kernels.cu"
 POINT_REPLACES = {
     "point": "manta_tpu/ops/pallas/point_kernels.py:501",
-    "columns": "manta_tpu/ops/pallas/point_kernels.py:603",
+    "buckets": "manta_tpu/ops/pallas/point_kernels.py:603",
     "fold": "manta_tpu/ops/pallas/point_kernels.py:711",
     # the window sums and Horner loop that ran as `_point_op` launches
     "combine": "manta_tpu/ops/pallas/point_kernels.py:501",
+    # the two dense bucket merges that ran as `_point_op` launches
+    "merge": "manta_tpu/ops/pallas/point_kernels.py:501",
 }
 RNS_SOURCE = "manta_tpu_torch/csrc/rns_kernels.cu"
 RNS_REPLACES = {
@@ -291,16 +303,19 @@ def build_kernels() -> dict:
     seconds = time.perf_counter() - t0
     log(f"  built {len(paths)} libraries in {seconds:.3f} s: "
         + ", ".join(os.path.relpath(p, ROOT) for p in paths))
-    report = {"field": {}, "point": {}, "columns": {}, "fold": {}, "combine": {}, "rns_point": {},
-              "rns_columns": {}, "rns_hybrid": {}, "seconds": seconds}
+    report = {"field": {}, "point": {}, "buckets": {}, "fold": {}, "combine": {}, "merge": {},
+              "rns_point": {}, "rns_columns": {}, "rns_hybrid": {}, "seconds": seconds}
     texts = {what: text for lib in libs for what, text in B.reports(lib).items()}
     if len(texts) != sum(len(lib.units) for lib in libs):
         raise AssertionError(f"compiler reports missing: have {sorted(texts)}")
-    for what, text in texts.items():
+    def usage(text):
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
         spills = [int(a) + int(b) for a, b in
                   re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
-        row = {"registers": max(regs), "spill_bytes": max(spills, default=0)}
+        return {"registers": max(regs), "spill_bytes": max(spills, default=0)}
+
+    for what, text in texts.items():
+        row = usage(text)
         if what.startswith("field_kernels"):
             report["field"] = row
             continue
@@ -313,6 +328,11 @@ def build_kernels() -> dict:
         curve = what.split()[0].removeprefix("point_kernels-")
         kernel = PK.KERNELS[int(what.rsplit("=", 1)[1])]
         kind = "point" if kernel in ("add", "madd", "double") else kernel
+        if kernel == "add":  # the add object also holds the merge kernel
+            entries = text.split("Compiling entry function")
+            merge = "".join(e for e in entries[1:] if "merge_kernel" in e)
+            row = usage(entries[0] + "".join(e for e in entries[1:] if "merge_kernel" not in e))
+            report["merge"][curve] = usage(merge)
         report[kind][f"{curve} {kernel}" if kind == "point" else curve] = row
     for kind, rows in report.items():
         if kind != "seconds":
@@ -350,7 +370,7 @@ def check_point_kernels() -> dict:
     from manta_tpu_torch.ops.kernels import point_kernels as PK
 
     rng = np.random.default_rng(SEED + 1)
-    max_err = {"point": 0, "columns": 0, "fold": 0, "combine": 0}
+    max_err = {"point": 0, "buckets": 0, "fold": 0, "combine": 0, "merge": 0}
 
     def hold(kind, what, got, want):
         torch.cuda.synchronize()
@@ -372,18 +392,24 @@ def check_point_kernels() -> dict:
             hold("point", f"{name} {which}", getattr(PK, f"fused_{which}")(curve, *args),
                  PK.PLAIN[which](curve, *args))
         K, R = 16, 1024
+        args = bucket_stream(curve, limb, rng, K, 4, R // 4, 513)
+        got_b, got_a = PK.accumulate_buckets(curve, *args)
+        want_b, want_a = PK.plain_accumulate_buckets(curve, *args)
+        hold("buckets", f"{name} bucket column", [*got_b, *got_a], [*want_b, *want_a])
+        # the plain merge and the dense additions it replaced first: the
+        # kernel updates the buckets in place
+        merge_args = merge_inputs(curve, limb, rng, 4000, 1200, 300)
+        want = PK.plain_merge_buckets(curve, *merge_args)
+        hold("merge", f"{name} dense merge (limb reference) vs plain merge",
+             PK.limb_merge_buckets(curve, *merge_args), want)
+        hold("merge", f"{name} merge", PK.merge_buckets(curve, *merge_args), want)
         enc = limb.encode_points(host_points(curve, rng, K * R), "cuda")
         head = torch.from_numpy(rng.random((K, R)) < 0.3).cuda()
-        qinf = torch.from_numpy(rng.random((K, R)) < 0.1).cuda()
         head[3] = True
-        qinf[:, 5] = True
 
         def stream(c):  # lane j owns points [j*K, (j+1)*K)
             return c.reshape(*c.shape[:-1], R, K).movedim(-1, 0).contiguous()
 
-        px, py = stream(enc.x), stream(enc.y)
-        hold("columns", f"{name} column", PK.accumulate_columns(curve, px, py, qinf, head),
-             PK.plain_accumulate_columns(curve, px, py, qinf, head))
         q = [stream(c) for c in limb.double(enc)]
         got_a, got_b = PK.fold_columns(curve, *q, head, True)
         want_a, want_b = PK.plain_fold_columns(curve, *q, head, True)
@@ -400,10 +426,89 @@ def check_point_kernels() -> dict:
                     for _ in range(2))
             hold("combine", f"{name} combine W={windows}", PK.combine_windows(curve, a, b, 5, 13),
                  PK.plain_combine_windows(curve, a, b, 5, 13))
-        log(f"  {name}: point add / madd / double over 1000 lanes, column and fold at "
-            f"K={K}, R={R}, fold at K=37 and 128 (R=40, edge lanes), combine at W=20 and 3: "
-            f"bit-equal to the plain versions")
+        log(f"  {name}: point add / madd / double over 1000 lanes, bucket column and fold at "
+            f"K={K}, R={R} (edge lanes), fold at K=37 and 128 (R=40, edge lanes), combine at "
+            f"W=20 and 3, merge over 4000 buckets (edge partials): bit-equal to the plain "
+            f"versions")
     return max_err
+
+
+def bucket_stream(curve, limb, rng, K, W, R, num_buckets, device="cuda"):
+    """Arguments of `accumulate_buckets` as the MSM gives them: W windows of
+    R lanes of K steps, each window's digits sorted, lane j of a window
+    owning its sorted positions [j·K, (j+1)·K); heads, run ends and slots
+    from `msm._sorted_layout` / `msm._run_end_slots`. Window 0 holds the
+    edge lanes: lane 0 one digit over q, -q, q, ... (the sum at infinity
+    every other step), lane 1 one digit over one point repeated (the
+    doubling branch), lanes 2-4 one digit across whole lanes, lane 5 a run
+    of one step at its first step and a run ending at its last step, then
+    random digits, some buckets empty; window 1's lane 3 is all infinity, and
+    a tenth of the other points are at infinity. Returns (px, py, qinf, head,
+    slot, W·num_buckets)."""
+    from manta_tpu_torch.ops import msm as M
+
+    n = K * R
+    digits = np.sort(rng.integers(0, num_buckets, (W, n)), axis=-1)
+    edge = [np.full(K, 1), np.full(K, 2), np.full(3 * K, 3), [4], np.full(K - 1, 5)]
+    digits[0] = np.concatenate(edge + [np.sort(rng.integers(6, num_buckets, n - 6 * K))])
+    pts = host_points(curve, rng, W * n)
+    g = curve.generator
+    for k in range(K):
+        pts[k] = g if k % 2 == 0 else curve.neg(g)
+        pts[K + k] = pts[K]
+        pts[n + 3 * K + k] = None
+    enc = limb.encode_points(pts, device)
+
+    def stream(c):  # (*E, W·n) in sorted order -> (K, *E, W·R)
+        c = c.reshape(*c.shape[:-1], W, R, K).movedim(-1, 0)
+        return c.reshape(*c.shape[:-2], W * R).contiguous()
+
+    _, d_t, head, end = M._sorted_layout(torch.from_numpy(digits).to(device), K)
+    qinf = stream(limb.affine_infinity_mask(enc)[None])[:, 0]
+    return (stream(enc.x), stream(enc.y), qinf, head.reshape(K, W * R),
+            M._run_end_slots(d_t, end, num_buckets), W * num_buckets)
+
+
+def merge_inputs(curve, limb, rng, num_slots, n1, n2, device="cuda"):
+    """Arguments of `merge_buckets`: Jacobian buckets (*E, num_slots), some at
+    infinity as (0, 1, 0) and some with other coordinates (x kept, Z = 0 or
+    Z = p); level-1 partials at n1 distinct slots (some -1) and level-2
+    partials at n2 (some -1, some slots shared with level 1, one bucket at
+    infinity with other coordinates hit by level 2 only); partials -a (sum
+    at infinity), a (the doubling branch) and infinity among them."""
+    from manta_tpu_torch import fields
+    from manta_tpu_torch.ops.curve import JacobianPoint
+
+    a = limb.double(limb.encode_points(host_points(curve, rng, num_slots, 0.05), device))
+    a = JacobianPoint(*(c.contiguous() for c in a))  # updated in place on the card
+    p_limbs = torch.tensor(fields.int_to_limbs(curve.field.modulus, curve.field.num_limbs)
+                           .astype(np.int32), device=device)
+    a.z[..., 1] = 0  # infinity, x and y kept
+    a.z[..., 2] = 0
+    if curve.is_ext:
+        a.z[0, :, 3] = p_limbs  # z = p + 0·u: zero
+        a.z[1, :, 3] = 0
+    else:
+        a.z[:, 3] = p_limbs
+    order = rng.permutation(num_slots)
+    # slots 1 and 3 (infinity, other coordinates) hit by nothing, slot 2 by
+    # level 2 only: they come last (num_slots >= n1 + n2 + 3)
+    order = np.concatenate([order[~np.isin(order, (1, 2, 3))], [1, 3, 2]])
+    key1 = order[:n1].copy()
+    key2 = np.concatenate([order[n1 // 2 : n1 // 2 + n2 // 2],
+                           order[n1 : n1 + n2 - n2 // 2 - 1], [2]])
+    key1[rng.integers(4, n1, n1 // 8)] = -1
+    key2[rng.integers(0, n2 - 1, n2 // 8)] = -1
+    key1, key2 = (torch.from_numpy(k).to(device) for k in (key1, key2))
+    v1 = limb.double(limb.encode_points(host_points(curve, rng, n1, 0.05), device))
+    v2 = limb.double(limb.encode_points(host_points(curve, rng, n2, 0.05), device))
+    neg = limb.neg(JacobianPoint(*(c[..., key1[0:1]] for c in a)))
+    same = JacobianPoint(*(c[..., key1[1:2]] for c in a))
+    for c, cn, cs in zip(v1, neg, same):
+        c[..., 0:1] = cn
+        c[..., 1:2] = cs
+        c[..., 2] = 0  # infinity
+    return a, v1, key1, v2, key2
 
 
 def fold_stream(curve, limb, rng, K, R):
@@ -537,8 +642,11 @@ def check_msm(cops, pts, steps, label):
     return field_launches
 
 
-def check_msms():
+def check_msms() -> dict:
+    """The MSMs of phase 6; returns the point-kernel launches of the fused
+    MSM off the fold path, the path where the point-op kernel still adds."""
     from manta_tpu_torch.ops import curve as C
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
     from manta_tpu_torch.utils import hostmath
 
     curve = hostmath.BN254_G1
@@ -549,13 +657,19 @@ def check_msms():
     # negated y coordinates, one negation in the weighted fold) is field ops
     if sum(glue.values()) > 4:
         raise AssertionError(f"the fused MSM ran field-kernel launches {glue}")
+    PK.reset_launches()
     check_msm(fused, pts[:4096], 128, "BN254 G1 MSM n=4096, fused, 32 lanes (no fold path)")
+    off_fold = dict(PK.LAUNCHES)
+    log(f"  point-kernel launches in it: {json.dumps(off_fold)}")
+    if off_fold["add"] <= 0 or off_fold["buckets"] != 1:
+        raise AssertionError(f"the fused MSM off the fold path launched {off_fold}")
     check_msm(limb, pts[:4096], 128, "BN254 G1 MSM n=4096, limb")
     for backend in ("rns_fused", "rns_hybrid"):
         check_msm(C.curve_ops_for(curve, backend), pts, 128, f"BN254 G1 MSM n=65536, {backend}")
     bls = hostmath.BLS12_381_G1
     check_msm(C.curve_ops_for(bls, "rns_hybrid"), multiples_of_g(bls, 65536), 128,
               "BLS12-381 G1 MSM n=65536, rns_hybrid")
+    return off_fold
 
 
 # ---------------------------------------------------------------------------
@@ -634,7 +748,7 @@ class Recorder:
 
         self.mod = RK if rns else PK
         self.names = ("_point_op", "_columns") if rns else (
-            "_point_op", "accumulate_columns", "fold_columns", "combine_windows")
+            "_point_op", "accumulate_buckets", "fold_columns", "combine_windows", "merge_buckets")
         self.calls, self.saved = {}, {}
 
     def __enter__(self):
@@ -648,16 +762,22 @@ class Recorder:
             setattr(self.mod, name, fn)
 
     def _wrap(self, name, fn):
+        from manta_tpu_torch.ops import curve as C
+
         def call(curve, *args):
             if name == "_point_op":
                 key = (args[0], curve.name, tuple(args[1].x.shape))
             elif name == "_columns":  # (kind, px, py, qinf, head)
                 key = (args[0], curve.name, tuple(args[1].shape))
             else:
-                kind = {"accumulate_columns": "columns", "fold_columns": "fold",
-                        "combine_windows": "combine"}[name]
-                first = args[0].x if kind == "combine" else args[0]
+                kind = {"accumulate_buckets": "buckets", "fold_columns": "fold",
+                        "combine_windows": "combine", "merge_buckets": "merge"}[name]
+                first = args[0].x if kind in ("combine", "merge") else args[0]
                 key = (kind, curve.name, tuple(first.shape))
+                if kind == "merge" and key not in self.calls:
+                    # the merge updates its buckets in place: keep them as given
+                    kept = (C.JacobianPoint(*(c.clone() for c in args[0])), *args[1:])
+                    self.calls[key] = (fn, curve, kept)
             self.calls.setdefault(key, (fn, curve, args))
             return fn(curve, *args)
 
@@ -705,10 +825,25 @@ def point_bound_ms(kind, curve, args):
         coords = size * (3 if kind == "double" else 6) + 3 * size
         lanes = size // (curve.field.num_limbs * (2 if curve.is_ext else 1))
         products = PRODUCTS[kind][g] * lanes
-    elif kind == "columns":
-        px, _, _, head = args
-        coords = 5 * px.numel() + 2 * head.numel()
+    elif kind == "buckets":  # args: (px, py, qinf, head, slot, num_slots)
+        px, _, _, head, slot, _ = args
+        lanes = px.shape[-1]
+        rows = px[0].numel() // lanes  # 16-bit rows of a coordinate
+        ends = int((slot >= 0).sum())
+        # px, py and the three masks read; the run ends and the last step written
+        coords = 2 * px.numel() + 3 * head.numel() + 3 * rows * (ends + lanes)
         products = PRODUCTS["madd"][g] * int((~head.bool()).sum())
+    elif kind == "merge":  # args: (buckets, v1, key1, v2, key2)
+        a, _, key1, _, key2 = args
+        n = a.x.shape[-1]
+        rows = a.x.numel() // n
+        live = int((key1 >= 0).sum()) + int((key2 >= 0).sum())
+        hit = int(torch.unique(torch.cat([key1[key1 >= 0], key2[key2 >= 0]])).numel())
+        # every bucket's Z read (an infinity elsewhere is made canonical), the
+        # hit buckets' X, Y read and all three written, the live partials and
+        # both keys read; an addition per live partial
+        coords = rows * n + 5 * rows * hit + 3 * rows * live + key1.numel() + key2.numel()
+        products = PRODUCTS["add"][g] * live
     elif kind == "fold":  # args: (qx, qy, qz, head, sums); B's last row with sums
         qx, _, _, head, sums = args
         coords = 6 * qx.numel() + head.numel() + (3 * qx[0].numel() if sums else 0)
@@ -727,13 +862,15 @@ def point_bound_ms(kind, curve, args):
 
 
 # the shape of each kernel that its `kernels` entry reports, with its plain
-# time: the G1 column of MSM A, the weighted fold's first level, the bucket
-# merge of the G1 MSMs, the G1 combine
+# time: the G1 bucket column of MSM A, the weighted fold's first level, the
+# G1 combine, the G1 merge, and the dense point-op addition of the bucket
+# merge that the merge kernel replaced (one of two a G1 MSM)
 MAIN_SHAPES = {
-    "columns": ("columns", "bn254_g1", (128, 16, 10240)),
+    "buckets": ("buckets", "bn254_g1", (128, 16, 10240)),
     "fold": ("fold", "bn254_g1", (32, 16, 2560)),
-    "point": ("add", "bn254_g1", (16, 20, 4097)),
     "combine": ("combine", "bn254_g1", (16, 40)),
+    "merge": ("merge", "bn254_g1", (16, 81940)),
+    "point": ("add", "bn254_g1", (16, 81940)),
 }
 
 
@@ -746,8 +883,8 @@ def reference(kind, which, curve, args):
 
     if kind == "point":
         return getattr(C.curve_ops_for(curve, "limb"), which)(*args[1:])
-    limb = {"columns": PK.limb_accumulate_columns, "fold": PK.limb_fold_columns,
-            "combine": PK.limb_combine_windows}[kind]
+    limb = {"buckets": PK.limb_accumulate_buckets, "fold": PK.limb_fold_columns,
+            "combine": PK.limb_combine_windows, "merge": PK.limb_merge_buckets}[kind]
     return limb(curve, *args)
 
 
@@ -763,16 +900,22 @@ def time_recorded(recorder, max_err) -> dict:
     the card, and at the `MAIN_SHAPES` also against the plain version (the
     host integers), bit for bit, on the recorded inputs; raise on any
     difference, and keep the largest in `max_err`. Then time each call."""
+    from manta_tpu_torch.ops import curve as C
     from manta_tpu_torch.ops.kernels import point_kernels as PK
 
-    plain = {"columns": PK.plain_accumulate_columns, "fold": PK.plain_fold_columns,
-             "combine": PK.plain_combine_windows}
-    rows = {"point": [], "columns": [], "fold": [], "combine": []}
+    plain = {"buckets": PK.plain_accumulate_buckets, "fold": PK.plain_fold_columns,
+             "combine": PK.plain_combine_windows, "merge": PK.plain_merge_buckets}
+    rows = {"point": [], "buckets": [], "fold": [], "combine": [], "merge": []}
     for (which, curve_name, shape), (fn, curve, args) in sorted(
         recorder.calls.items(), key=lambda kv: kv[0]
     ):
         kind = "point" if which in PRODUCTS else which
+        if kind == "merge":  # in place: a copy for each use
+            kept = args
+            args = (C.JacobianPoint(*(c.clone() for c in kept[0])), *kept[1:])
         got = _coords(fn(curve, *args))
+        if kind == "merge":
+            args = kept
         err = _max_err(got, _coords(reference(kind, which, curve, args)))
         row = {"op": which, "curve": curve_name, "shape": list(shape)}
         main = MAIN_SHAPES[kind] == (which, curve_name, shape)
@@ -789,21 +932,70 @@ def time_recorded(recorder, max_err) -> dict:
             raise AssertionError(f"{which} {curve_name} {tuple(shape)}: kernel != "
                                  f"{'plain version' if main else 'limb reference'}: "
                                  f"max |diff| {err}")
+        row["bound_ms"], row["bound_by"] = point_bound_ms(which, curve, args)
+        if kind == "merge":  # timed on a copy, updated in place call after call
+            args = (C.JacobianPoint(*(c.clone() for c in args[0])), *args[1:])
         once = graph_ms(lambda: fn(curve, *args), 1)
         reps = max(1, min(200, int(20 / max(once, 1e-3))))
         row["ms"] = graph_ms(lambda: fn(curve, *args), reps)
         row["call_ms"] = cuda_ms(lambda: fn(curve, *args), reps)
-        row["bound_ms"], row["bound_by"] = point_bound_ms(which, curve, args)
         rows[kind].append(row)
         checked = "the limb reference" + (" and the plain version" if main else "")
         log(f"  {which} {curve_name} {tuple(shape)}: bit-equal to {checked}; "
             f"{row['ms']:.6f} ms on the device, {row['call_ms']:.6f} ms a call, bound "
             f"{row['bound_ms']:.6f} ms ({row['bound_by']})"
             + (f", plain {row['plain_ms']:.3f} ms" if main else ""))
+    rows["point"] += dense_merges(recorder, max_err)
+    rows["point"] += horner_doublings(recorder, max_err)
     for kind, (which, curve_name, shape) in MAIN_SHAPES.items():
         if not any(r.get("main") for r in rows[kind]):
             raise AssertionError(f"the proof made no {which} call on {curve_name} at {shape}")
-    rows["point"] += horner_doublings(recorder, max_err)
+    return rows
+
+
+def dense_merges(recorder, max_err) -> list:
+    """The dense point-op addition of the bucket merge that the merge kernel
+    replaced (two a MSM before it: buckets + B1, then + B2), on each
+    recorded merge call's buckets and its level-1 partials spread over the
+    buckets: held against the limb reference (and at its main shape the
+    plain version) and timed, as a yardstick for the merge."""
+    from manta_tpu_torch.ops import curve as C
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    rows = []
+    for (which, curve_name, shape), (_, curve, args) in sorted(recorder.calls.items(),
+                                                              key=lambda kv: kv[0]):
+        if which != "merge":
+            continue
+        a, v1, key1 = args[:3]
+        b1 = PK._infinity(curve, a.x.shape[-1], "cuda")
+        live = key1 >= 0
+        for o, c in zip(b1, v1):
+            o[..., key1[live]] = c[..., live]
+        got = PK.fused_add(curve, a, b1)
+        err = _max_err(got, C.curve_ops_for(curve, "limb").add(a, b1))
+        row = {"op": "add", "curve": curve_name, "shape": list(a.x.shape),
+               "path": "the dense bucket merge's addition that the merge kernel replaced"}
+        if MAIN_SHAPES["point"] == ("add", curve_name, tuple(a.x.shape)):
+            t0 = time.perf_counter()
+            want = PK.plain_add(curve, a, b1)
+            torch.cuda.synchronize()
+            row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            row["main"] = True
+            err = max(err, _max_err(got, want))
+        row["max_abs_err"] = err
+        max_err["point"] = max(max_err["point"], err)
+        if err:
+            raise AssertionError(f"add {curve_name} at the bucket-merge shape: kernel != "
+                                 f"reference: max |diff| {err}")
+        row["ms"] = graph_ms(lambda: PK.fused_add(curve, a, b1), 20)
+        row["call_ms"] = cuda_ms(lambda: PK.fused_add(curve, a, b1), 20)
+        row["bound_ms"], row["bound_by"] = point_bound_ms("add", curve, ("add", a, b1))
+        rows.append(row)
+        log(f"  add {curve_name} {tuple(a.x.shape)} (the dense bucket merge's addition the "
+            f"merge kernel replaced): bit-equal to the reference; {row['ms']:.6f} ms on the "
+            f"device, {row['call_ms']:.6f} ms a call, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']})")
     return rows
 
 
@@ -1009,26 +1201,27 @@ def main() -> int:
     log("== phase 3: field kernel vs plain version")
     max_err, timings = check_kernels()
 
-    log("== phase 4: point, column and fold kernels vs plain versions")
+    log("== phase 4: point, bucket-column, fold, combine and merge kernels vs plain versions")
     point_err = check_point_kernels()
 
     log("== phase 5: RNS point, column and hybrid column kernels vs plain versions")
     rns_err = check_rns_kernels()
 
     log("== phase 6: MSMs")
-    check_msms()
+    off_fold = check_msms()
 
     log("== phase 7: production PrivateTransfer proofs (the meta's backend)")
     counts, recorder = prove_production(record=True)
     for group, ops in (("field", ("mul", "add", "sub")),
-                       ("point", ("add", "columns", "fold", "combine"))):
+                       ("point", ("buckets", "fold", "combine", "merge"))):
         for op in ops:
             if counts[group][op] <= 0:
                 raise AssertionError(f"the main path launched no {group} {op} kernel")
-    # two proofs of four MSMs: 4 folds and 1 combine an MSM; the point-op
-    # kernel only merges the bucket batches (2 adds an MSM)
-    point_ops = sum(counts["point"][op] for op in ("add", "madd", "double"))
-    if counts["point"]["fold"] != 32 or counts["point"]["combine"] != 8 or point_ops > 16:
+    # two proofs of four MSMs: 1 bucket column, 4 folds, 1 merge and 1
+    # combine an MSM; no point-op launch (the merge kernel adds the bucket
+    # batches)
+    want = {"add": 0, "madd": 0, "double": 0, "buckets": 8, "fold": 32, "combine": 8, "merge": 8}
+    if counts["point"] != want:
         raise AssertionError(f"unexpected point-kernel launches over two proofs: {counts['point']}")
     log("  the point kernels at the shapes of the first proof: checked, then timed")
     point_rows = time_recorded(recorder, point_err)
@@ -1089,15 +1282,17 @@ def main() -> int:
             "shapes": timings[which],
             "build": build["field"],
         })
+    # the point op no longer runs on the fold path: its launches are those of
+    # the fused MSM off the fold path (phase 6)
     point_launches = {
-        "point": {op: counts["point"][op] for op in ("add", "madd", "double")},
-        "columns": counts["point"]["columns"],
-        "fold": counts["point"]["fold"],
-        "combine": counts["point"]["combine"],
+        "point": {op: off_fold[op] for op in ("add", "madd", "double")},
+        **{kind: counts["point"][kind] for kind in ("buckets", "fold", "combine", "merge")},
     }
-    for kind, name in (("point", "point_kernels.point_op"), ("columns", "point_kernels.accumulate_columns"),
+    for kind, name in (("point", "point_kernels.point_op"),
+                       ("buckets", "point_kernels.accumulate_buckets"),
                        ("fold", "point_kernels.fold_columns"),
-                       ("combine", "point_kernels.combine_windows")):
+                       ("combine", "point_kernels.combine_windows"),
+                       ("merge", "point_kernels.merge_buckets")):
         main_row = next(r for r in point_rows[kind] if r.get("main"))
         launches = point_launches[kind]
         kernels.append({
@@ -1106,6 +1301,8 @@ def main() -> int:
             "source": POINT_SOURCE,
             "replaces": POINT_REPLACES[kind],
             "launches": sum(launches.values()) if kind == "point" else launches,
+            "path": ("fused MSM off the fold path, 4096 points (phase 6)" if kind == "point"
+                     else "production proofs (fused)"),
             "max_abs_err": point_err[kind],
             "ms": main_row["ms"],
             "call_ms": main_row["call_ms"],

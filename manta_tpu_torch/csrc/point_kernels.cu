@@ -1,5 +1,5 @@
 // Whole-formula elliptic-curve kernels for Hopper (sm_90a): point op, bucket
-// column, fold, window combine.
+// column, fold, window combine, bucket merge.
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // `manta_tpu/ops/pallas/point_kernels.py`:
@@ -7,9 +7,12 @@
 //     whole Jacobian add (add-2007-bl), mixed add (madd-2007-bl, Z2 in {0, 1})
 //     or double (dbl-2009-l) per lane, with the edge dispatch of
 //     `CurveOps._add_dispatch`;
-//   - `_column_call` (public `accumulate_columns`): per lane, for k < K,
-//     acc = q[k] if head[k] else madd(acc, q[k]), q = infinity where qinf[k],
-//     acc written after every step;
+//   - `_column_call` (public `accumulate_buckets`): per lane, for k < K,
+//     acc = q[k] if head[k] else madd(acc, q[k]), q = infinity where qinf[k].
+//     The TPU kernel writes acc after every step, a (K, *E, R) stream of
+//     which the MSM keeps the run ends (`msm._run_ends_compact` and a
+//     scatter); this one writes acc only at a run end, straight into its
+//     bucket (`slot[k]` = w·num_buckets + digit, or −1), and the last acc;
 //   - `_fold_call` (public `fold_columns`): per lane,
 //     A = q[k] if head[k] else add(A, q[k]); B = add(B, A). The TPU kernel
 //     writes both streams; this one writes the A stream and, where the caller
@@ -17,8 +20,11 @@
 //     (`manta_tpu/ops/msm.py` reads the same rows).
 // The combine kernel takes over the point-op launches of the MSM's last
 // steps on the fold path (`_weighted_fold_fused`'s window sums and the Horner
-// loop over windows of `msm`, about 270 single-lane launches an MSM): the
-// TPU program runs those as `_point_op` calls too.
+// loop over windows of `msm`, about 270 single-lane launches an MSM), and the
+// merge kernel the two dense point-op additions that add the fold's trailing
+// partials into the buckets (`buckets + b1 + b2` over W·num_buckets lanes, of
+// which the partials hit at most W·R + W·128): the TPU program runs both as
+// `_point_op` calls too.
 //
 // What it computes is bit for bit what the plain versions compute: the field
 // ops are `FieldOps<F>` (field_ops.cuh), and every formula of point_ops.cuh
@@ -31,17 +37,34 @@
 // integers (Montgomery with R = 2^(16·L) either way). The fold kernel adds
 // in another order than the TPU kernel (below), so its Jacobian coordinates
 // differ from the JAX package's; the points are the same, and its plain
-// versions (`point_kernels.PLAIN`) add in its order.
+// versions (`point_kernels.PLAIN`) add in its order. The bucket column keeps
+// each lane's chunk and order of steps, so its buckets are the JAX
+// package's, bit for bit.
 //
 // Design: a point lives in registers as 32-bit words. Coordinates stay
 // limb-major (..., L, lanes) int32 at the boundary, so neighbouring threads
 // load and store neighbouring words. Any lane count: the tail block is masked
 // (the TPU kernels' padding to 128 lanes is not needed). The edge dispatch is
-// a per-thread branch: the doubling is computed only in a thread whose lane
-// needs it, and the host never waits for the device.
-//   - Point op and column: one thread per lane; the column keeps its
-//     accumulator in registers across all K steps (the TPU kernels carry it
-//     in VMEM scratch across a sequential grid axis).
+// a branch of the thread or group: the doubling is computed only where a
+// lane needs it, and the host never waits for the device.
+//   - Point op: one thread per lane.
+//   - Bucket column: one thread per lane ran 128 dependent mixed additions
+//     over the production prover's 10240 lanes (20 windows of 512): 320
+//     warps on 132 SMs, 2-3 warps an SM, all latency (1.83 ms for G1,
+//     9.22 ms for G2, H100 80GB HBM3, 700 W), and wrote a 0.25-0.50 GB
+//     stream an MSM. Here a group of G threads of a warp runs each lane
+//     (`group_madd_to`): each round of the formula's products is spread over
+//     the group, one base product a thread, gathered by shuffles, so a step
+//     is 6 rounds (G1, G = 2) or 8 (G2, G = 4) instead of 11 or 29 products
+//     in a row, with G times the threads in flight. G is small because the
+//     kernel is then bound by issuing the arithmetic: every thread of a
+//     group repeats the formula's additions, and a round that leaves a
+//     thread idle still costs the warp its issue slot, so at G = 4 (G1) or
+//     8 (G2) the kernel took 1.98 and 8.15 ms (H100 80GB HBM3, 700 W). Only
+//     run ends and the last step are written. Each thread loads its step's
+//     point itself (the words a group reads are the same, a warp's groups
+//     read neighbouring lanes): staging each step's slab through shared
+//     memory with `cp.async` and two block barriers a step gained nothing.
 //   - Fold: a segmented scan (`fold_group`). One thread per lane walking K
 //     dependent steps of two complete additions is all latency at the MSM's
 //     level-2 shapes (K = 128 over 20 or 40 lanes: one or two warps on the
@@ -59,38 +82,45 @@
 //     host 0.07-0.11 ms to issue. Its time is one chain of ~250 dependent
 //     doublings and ~20 additions: on one thread that took 2.1 ms for G1
 //     and 10.4 ms for G2 (H100 80GB HBM3, 700 W). So each formula runs
-//     spread over the 32 lanes of a warp (`warp_double_to`, `warp_add_to`):
-//     every round of its products whose operands are ready is one base-field
-//     product per lane, gathered by shuffles — a doubling is 3 rounds instead
-//     of 7 products (G1) or 16 (G2), an addition 5 instead of 16 or 44. The
-//     8 warps of the block compute the window sums, one window each in turn,
-//     into shared memory; warp 0 then runs the Horner chain.
-//   - The fold and combine kernels call each formula out of line (`add_to`,
-//     `double_to`, `warp_add_to`, `warp_double_to`), so each object compiles
-//     it once.
+//     spread over the 32 lanes of a warp (`group_double_to`, `group_add_to`):
+//     a doubling is 3 rounds of products instead of 7 products (G1) or 16
+//     (G2), an addition 5 instead of 16 or 44. The 8 warps of the block
+//     compute the window sums, one window each in turn, into shared memory;
+//     warp 0 then runs the Horner chain.
+//   - Merge: one group of G threads (as the bucket column's) per trailing
+//     partial of the fold's two levels (W·R + W·128 groups, those of a dead
+//     key idle), each running its bucket's two complete additions spread
+//     over the group, in place;
+//     the buckets no partial hits only have their infinity made canonical,
+//     as the dense additions would (blocks after the groups' blocks, one
+//     thread a bucket). The wrapper builds the inverse index slot -> entry.
+//   - The fold, combine, bucket column and merge kernels call each formula
+//     out of line (`add_to`, `double_to`, `group_*_to`), so each object
+//     compiles it once.
 //
 // Bound on the H100 (3.35 TB/s HBM; 67 T 32-bit multiply-adds/s, the card's
 // non-tensor rate, as the ceiling for integer work). A BN254 G1 mixed add is
 // 11 Montgomery products of S = 8 words, 2·S² + S = 136 multiply-adds each
-// (a complete add 16, a doubling 7). The column kernel at K = 128 over 10240
+// (a complete add 16, a doubling 7). The bucket column at K = 128 over 10240
 // lanes (one G1 MSM of the production prover, 20 windows of 512 lanes) reads
-// px, py and writes ox, oy, oz: 5 × 84 MB = 420 MB, 125 µs by bytes, against
-// 1.3 M mixed adds = 2.0 G multiply-adds = 3.9 G operations, 58 µs; it is
-// bound by bytes because it writes the accumulator after every step, as the
-// TPU kernel does. At these lane counts it runs a few warps per SM, each
-// thread a chain of dependent products, so expect latency, not either bound,
-// to set its time. The fold's least work is K additions for A (fewer where a
-// head starts a run) and K for B per lane, and its bytes q and A (6 streams)
-// plus B's row: at the G1 level-2 shape (128, 16, 20) 2 × 2560 additions =
-// 22 M operations, 0.33 µs, and 1 MB, 0.3 µs. The scan's extra additions
-// (about 3K per lane at K = 128) are not in the bound. The combine's least
-// work is its ~250 doublings and ~40 additions, 0.06 µs of operations for G1:
-// its time is the chain's latency.
+// px, py (168 MB) and the three masks (16 MB) and writes at most 20·4097 run
+// ends and 10240 last accumulators (18 MB): 202 MB, 60 µs by bytes, against
+// 1.3 M mixed adds = 2.0 G multiply-adds = 3.9 G operations, 58 µs (the
+// TPU kernel's stream made it 420 MB). The fold's least work is K additions
+// for A (fewer where a head starts a run) and K for B per lane, and its bytes
+// q and A (6 streams) plus B's row: at the G1 level-2 shape (128, 16, 20)
+// 2 × 2560 additions = 22 M operations, 0.33 µs, and 1 MB, 0.3 µs. The
+// scan's extra additions (about 3K per lane at K = 128) are not in the
+// bound. The combine's least work is its ~250 doublings and ~40 additions,
+// 0.06 µs of operations for G1: its time is the chain's latency. The merge's
+// is at most 12800 complete additions a G1 MSM (28 M operations, 0.4 µs)
+// and the buckets they touch.
 //
 // Built with `-DMANTA_CURVE=` 0 BN254 G1, 1 BN254 G2, 2 BLS12-381 G1,
-// 3 BLS12-381 G2 and `-DMANTA_KERNEL=` 0 add, 1 madd, 2 double, 3 column,
-// 4 fold, 5 combine: one object per kernel and curve, compiled in parallel,
-// and one shared library per curve that links its six objects.
+// 3 BLS12-381 G2 and `-DMANTA_KERNEL=` 0 add and merge, 1 madd, 2 double,
+// 3 bucket column, 4 fold, 5 combine: one object per kernel and curve (the
+// merge kernel shares the add kernel's), compiled in parallel, and one
+// shared library per curve that links its six objects.
 
 #include "point_ops.cuh"
 
@@ -99,9 +129,9 @@ namespace {
 using namespace manta;
 
 constexpr int kPointThreads = 128;
-// The column kernel runs one long dependent chain per thread over ~10^4
-// lanes: one warp per block spreads those lanes over every SM.
-constexpr int kColumnThreads = 32;
+// The bucket column and merge kernels: 4 warps a block, a group of
+// kGroupThreads threads a lane.
+constexpr int kBucketThreads = 128;
 // One warp per block of the fold kernel, so that a lane's threads share a warp.
 constexpr int kFoldThreads = 32;
 // The combine kernel's one block: 8 warps share the windows' sums, then one
@@ -121,14 +151,39 @@ __global__ void __launch_bounds__(kPointThreads)
   if (j < n) point_lane<C, WHICH>(px, py, pz, qx, qy, qz, ox, oy, oz, n, j);
 }
 
-template <class C>
-__global__ void __launch_bounds__(kColumnThreads)
-    column_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
-                  const int32_t* __restrict__ qinf, const int32_t* __restrict__ head,
-                  int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                  int steps, int64_t lanes) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kColumnThreads + threadIdx.x;
-  if (j < lanes) column_lane<C>(px, py, qinf, head, ox, oy, oz, steps, lanes, j);
+template <class C, int G>
+__global__ void __launch_bounds__(kBucketThreads)
+    bucket_column_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+                         const int32_t* __restrict__ qinf, const int32_t* __restrict__ head,
+                         const int32_t* __restrict__ slot, int32_t* __restrict__ bx,
+                         int32_t* __restrict__ by, int32_t* __restrict__ bz,
+                         int32_t* __restrict__ ax, int32_t* __restrict__ ay,
+                         int32_t* __restrict__ az, int steps, int64_t lanes, int64_t num_slots) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * (kBucketThreads / G) + threadIdx.x / G;
+  bucket_column_group<C, G>(px, py, qinf, head, slot, bx, by, bz, ax, ay, az, steps, lanes,
+                            num_slots, j, Group<G>(threadIdx.x % 32));
+}
+
+// Blocks below `group_blocks`: one group of G threads per merge entry;
+// blocks from `group_blocks` on: one thread per bucket (`merge_untouched`).
+template <class C, int G>
+__global__ void __launch_bounds__(kBucketThreads)
+    merge_kernel(int32_t* __restrict__ ax, int32_t* __restrict__ ay, int32_t* __restrict__ az,
+                 const int32_t* __restrict__ v1x, const int32_t* __restrict__ v1y,
+                 const int32_t* __restrict__ v1z, const int32_t* __restrict__ key1,
+                 const int32_t* __restrict__ v2x, const int32_t* __restrict__ v2y,
+                 const int32_t* __restrict__ v2z, const int32_t* __restrict__ key2,
+                 const int32_t* __restrict__ inv1, const int32_t* __restrict__ inv2, int64_t n1,
+                 int64_t n2, int64_t num_slots, int64_t group_blocks) {
+  const int64_t block = blockIdx.x;
+  if (block < group_blocks) {
+    const int64_t e = block * (kBucketThreads / G) + threadIdx.x / G;
+    merge_group<C, G>(ax, ay, az, v1x, v1y, v1z, key1, v2x, v2y, v2z, key2, inv1, inv2, n1, n2,
+                      num_slots, e, Group<G>(threadIdx.x % 32));
+  } else {
+    merge_untouched<C>(ax, ay, az, inv1, inv2, num_slots,
+                       (block - group_blocks) * kBucketThreads + threadIdx.x);
+  }
 }
 
 template <class C>
@@ -170,6 +225,10 @@ using Curve = Ext<Bls12381Fq>;
 #error "MANTA_CURVE must be 0..3"
 #endif
 
+// threads of a lane in the bucket column and the merge: 2 for G1, 4 for G2
+// (the fastest of 1 to 16 for the bucket column on the card)
+constexpr int kGroupThreads = WarpProducts<Curve>::kMul == 1 ? 2 : 4;
+
 [[maybe_unused]] inline dim3 grid_for(int64_t lanes, int threads) {
   return dim3(static_cast<unsigned>((lanes + threads - 1) / threads));
 }
@@ -199,7 +258,7 @@ int launch_point(const void* px, const void* py, const void* pz, const void* qx,
 // parallel (`ops/kernels/build.py`); the curve's shared library links all
 // six. Each launcher returns the launch's cudaError_t (0 on success).
 #ifndef MANTA_KERNEL
-#error "build with -DMANTA_KERNEL=0..5 (add, madd, double, column, fold, combine)"
+#error "build with -DMANTA_KERNEL=0..5 (add and merge, madd, double, bucket column, fold, combine)"
 #elif MANTA_KERNEL <= 2
 // Every coordinate a contiguous (*E, n) int32 array; double ignores q.
 #define MANTA_POINT_LAUNCHER(name, which)                                                    \
@@ -210,26 +269,54 @@ int launch_point(const void* px, const void* py, const void* pz, const void* qx,
   }
 #if MANTA_KERNEL == 0
 MANTA_POINT_LAUNCHER(manta_point_add, kAdd)
+// a, in place: (*E, num_slots) int32; v1: (*E, n1), key1: (n1); v2: (*E, n2),
+// key2: (n2); inv1, inv2: (num_slots) int32. See `merge_group`.
+extern "C" int manta_merge_buckets(void* ax, void* ay, void* az, const void* v1x,
+                                   const void* v1y, const void* v1z, const void* key1,
+                                   const void* v2x, const void* v2y, const void* v2z,
+                                   const void* key2, const void* inv1, const void* inv2,
+                                   long long n1, long long n2, long long num_slots,
+                                   void* stream) {
+  if (n1 < 0 || n2 < 0 || num_slots < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_slots == 0) return 0;
+  constexpr int per_block = kBucketThreads / kGroupThreads;
+  const long long group_blocks = (n1 + n2 + per_block - 1) / per_block;
+  const long long blocks = group_blocks + (num_slots + kBucketThreads - 1) / kBucketThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  merge_kernel<Curve, kGroupThreads><<<dim3(static_cast<unsigned>(blocks)), kBucketThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(ax), static_cast<int32_t*>(ay), static_cast<int32_t*>(az),
+      static_cast<const int32_t*>(v1x), static_cast<const int32_t*>(v1y),
+      static_cast<const int32_t*>(v1z), static_cast<const int32_t*>(key1),
+      static_cast<const int32_t*>(v2x), static_cast<const int32_t*>(v2y),
+      static_cast<const int32_t*>(v2z), static_cast<const int32_t*>(key2),
+      static_cast<const int32_t*>(inv1), static_cast<const int32_t*>(inv2), n1, n2, num_slots,
+      group_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
 #elif MANTA_KERNEL == 1
 MANTA_POINT_LAUNCHER(manta_point_madd, kMadd)
 #else
 MANTA_POINT_LAUNCHER(manta_point_double, kDouble)
 #endif
 #elif MANTA_KERNEL == 3
-// px, py -> ox, oy, oz: (K, *E, R) int32; qinf, head: (K, R) int32.
-extern "C" int manta_accumulate_columns(const void* px, const void* py, const void* qinf,
-                                        const void* head, void* ox, void* oy, void* oz,
-                                        int steps, long long lanes, void* stream) {
+// px, py: (K, *E, R) int32; qinf, head, slot: (K, R) int32 -> bx, by, bz:
+// (*E, num_slots), written at the slots >= 0 only (the caller fills them
+// first); ax, ay, az: (*E, R), the last step's accumulator.
+extern "C" int manta_accumulate_buckets(const void* px, const void* py, const void* qinf,
+                                        const void* head, const void* slot, void* bx, void* by,
+                                        void* bz, void* ax, void* ay, void* az, int steps,
+                                        long long lanes, long long num_slots, void* stream) {
   if (lanes <= 0 || steps <= 0) return 0;
-  if (too_many_blocks(lanes, kColumnThreads)) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  column_kernel<Curve><<<grid_for(lanes, kColumnThreads), kColumnThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  constexpr int per_block = kBucketThreads / kGroupThreads;
+  if (too_many_blocks(lanes, per_block)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  bucket_column_kernel<Curve, kGroupThreads><<<grid_for(lanes, per_block), kBucketThreads, 0,
+                                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(px), static_cast<const int32_t*>(py),
       static_cast<const int32_t*>(qinf), static_cast<const int32_t*>(head),
-      static_cast<int32_t*>(ox), static_cast<int32_t*>(oy), static_cast<int32_t*>(oz), steps,
-      lanes);
+      static_cast<const int32_t*>(slot), static_cast<int32_t*>(bx), static_cast<int32_t*>(by),
+      static_cast<int32_t*>(bz), static_cast<int32_t*>(ax), static_cast<int32_t*>(ay),
+      static_cast<int32_t*>(az), steps, lanes, num_slots);
   return static_cast<int>(cudaGetLastError());
 }
 #elif MANTA_KERNEL == 4

@@ -4,11 +4,13 @@
 // (CurveOps.double / add / madd with the edge dispatch of `_add_dispatch`),
 // each in the same sequence of field ops, so the lazy [0, 2p) values agree
 // bit for bit with the plain versions, and the body of each kernel: one lane
-// (`point_lane`, `column_lane`), one thread of a lane's group (`fold_group`)
-// or one block (`combine_block`, whose formulas run spread over the lanes of
-// a warp: `warp_double_to`, `warp_add_to`). Nothing here launches: a host
-// C++ harness can include this header (with the CUDA qualifiers and the warp
-// shuffles defined for the CPU) and run the bodies there.
+// (`point_lane`), the threads of a lane's group (`bucket_column_group`,
+// `fold_group`, `merge_group`) or one block (`combine_block`). The bucket column,
+// merge and combine run their formulas spread over a group of threads of a
+// warp (`group_madd_to`, `group_add_to`, `group_double_to`). Nothing here
+// launches: a host C++ harness can include this header (with the CUDA
+// qualifiers, the warp shuffles and the block barrier defined for the CPU)
+// and run the bodies there.
 
 #pragma once
 
@@ -241,28 +243,6 @@ __device__ __forceinline__ void point_lane(
   store_point<C>(ox, oy, oz, n, j, r);
 }
 
-// One lane of the column kernel. px, py, ox, oy, oz: (K, *E, R); qinf, head:
-// (K, R). The accumulator starts at infinity and stays in registers.
-template <class C>
-__device__ __forceinline__ void column_lane(
-    const int32_t* __restrict__ px, const int32_t* __restrict__ py,
-    const int32_t* __restrict__ qinf, const int32_t* __restrict__ head,
-    int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, int steps,
-    int64_t lanes, int64_t j) {
-  const int64_t step = C::kRows * lanes;  // elements of one coordinate per step
-  Pt<C> acc = infinity<C>();
-#pragma unroll 1
-  for (int k = 0; k < steps; ++k) {
-    const int64_t off = k * step;
-    const bool q_inf = qinf[k * lanes + j] != 0;
-    const Pt<C> q = {C::load(px + off, lanes, j),
-                     q_inf ? C::one() : C::load(py + off, lanes, j),
-                     q_inf ? C::zero() : C::one()};
-    acc = (head[k * lanes + j] != 0) ? q : point_madd<C>(acc, q);
-    store_point<C>(ox + off, oy + off, oz + off, lanes, j, acc);
-  }
-}
-
 // Out-of-line complete addition and doubling for the fold and combine
 // kernels, which reach each formula from several places: one body per object
 // keeps `ptxas` time (minutes for the BLS12-381 G2 objects) from growing with
@@ -390,24 +370,62 @@ __device__ __forceinline__ void fold_group(
   if (t == 0 && live) store_point<C>(bx, by, bz, lanes, j, b);
 }
 
-// The formulas spread over the 32 lanes of a warp, for one chain that has
-// nothing else to run in parallel (the combine's Horner chain). Each round
-// of a formula's Montgomery products whose operands are known runs as one
-// base-field product per lane: lane i computes base product i of the round
-// and every lane gathers all of them by shuffles, so that every lane holds
-// the same values and runs the same code. The base products, their operands
-// and the additions around them are those of `point_double` and
-// `point_add` (an Fq2 product is its three base products, an Fq2 square
-// its two), so the results are the same integers. `WarpProducts<C>` splits
-// a product of C into base products: `*_operands` gives lane `part`'s
-// operands, `*_result` gathers the products of lanes first, first + 1, ...
-template <class F>
-__device__ __forceinline__ typename Base<F>::V shfl_from(const typename Base<F>::V& v, int src) {
-  typename Base<F>::V r;
+// The formulas spread over a group of G threads of one warp (G a power of
+// two, at most 32) that run one chain together: the bucket column and the
+// merge kernel put 2 (G1) or 4 (G2) threads on each lane, the combine all 32
+// on its Horner chain. Each round of a formula's Montgomery products whose
+// operands are known runs as base-field products spread over the group:
+// base product i of the round is computed by thread i % G in pass i / G
+// (one pass where the round has at most G base products), and every thread
+// gathers all of them by shuffles within the group, so that every thread
+// of the group holds the same values and takes the same branches. The base
+// products, their operands and the additions around them are those of
+// `point_double`, `point_add` and `point_madd` (an Fq2 product is its three
+// base products, an Fq2 square its two), so the results are the same
+// integers. `WarpProducts<C>` splits a product of C into base products:
+// `*_operands` gives base product `part`'s operands, `*_result` gathers
+// base products first, first + 1, ... through `get(i)`.
+template <int G>
+struct Group {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "a group is 2^k <= 32 threads");
+  int rank;       // this thread's place in the group
+  unsigned mask;  // the group's threads in the warp
+  __device__ __forceinline__ explicit Group(int lane)
+      : rank(lane % G), mask(G == 32 ? kFullWarp : ((1u << G) - 1u) << (lane - lane % G)) {}
+};
+
+// Every 32-bit word of v from thread `src` of the group.
+template <int G, class V>
+__device__ __forceinline__ V shfl_from(const V& v, int src, const Group<G>& g) {
+  constexpr int kWords = sizeof(V) / sizeof(uint32_t);
+  V r;
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(&v);
+  uint32_t* o = reinterpret_cast<uint32_t*>(&r);
 #pragma unroll
-  for (int k = 0; k < FieldOps<F>::S; ++k) r.w[k] = __shfl_sync(kFullWarp, v.w[k], src);
+  for (int i = 0; i < kWords; ++i) o[i] = __shfl_sync(g.mask, s[i], src, G);
   return r;
 }
+
+// One round of P base products of B over a group of G threads.
+// `operands(i, u, v)` sets the operands of base product i; `get(i)` returns
+// base product i in every thread of the group (i a constant after inlining).
+template <class B, int G, int P>
+struct Round {
+  using V = typename B::V;
+  static constexpr int kPasses = (P + G - 1) / G;
+  V w[kPasses];
+  const Group<G>& g;
+  template <class Operands>
+  __device__ __forceinline__ Round(const Group<G>& group, const Operands& operands) : g(group) {
+#pragma unroll
+    for (int pass = 0; pass < kPasses; ++pass) {
+      V u, v;
+      operands(min(pass * G + g.rank, P - 1), u, v);
+      w[pass] = B::mul(u, v);
+    }
+  }
+  __device__ __forceinline__ V get(int i) const { return shfl_from<G>(w[i / G], i % G, g); }
+};
 
 template <class C>
 struct WarpProducts;
@@ -425,11 +443,13 @@ struct WarpProducts<Base<F>> {
     u = a;
     v = a;
   }
-  __device__ __forceinline__ static V mul_result(const V& w, int first) {
-    return shfl_from<F>(w, first);
+  template <class R>
+  __device__ __forceinline__ static V mul_result(const R& r, int first) {
+    return r.get(first);
   }
-  __device__ __forceinline__ static V sqr_result(const V& w, int first) {
-    return shfl_from<F>(w, first);
+  template <class R>
+  __device__ __forceinline__ static V sqr_result(const R& r, int first) {
+    return r.get(first);
   }
 };
 
@@ -463,15 +483,17 @@ struct WarpProducts<Ext<F>> {
       v = a.c1;
     }
   }
-  __device__ __forceinline__ static V mul_result(const BV& w, int first) {
-    const BV t0 = shfl_from<F>(w, first);
-    const BV t1 = shfl_from<F>(w, first + 1);
-    const BV s = shfl_from<F>(w, first + 2);
+  template <class R>
+  __device__ __forceinline__ static V mul_result(const R& r, int first) {
+    const BV t0 = r.get(first);
+    const BV t1 = r.get(first + 1);
+    const BV s = r.get(first + 2);
     return {B::sub(t0, t1), B::sub(B::sub(s, t0), t1)};
   }
-  __device__ __forceinline__ static V sqr_result(const BV& w, int first) {
-    const BV t = shfl_from<F>(w, first);
-    return {t, B::dbl(shfl_from<F>(w, first + 1))};
+  template <class R>
+  __device__ __forceinline__ static V sqr_result(const R& r, int first) {
+    const BV t = r.get(first);
+    return {t, B::dbl(r.get(first + 1))};
   }
 };
 
@@ -480,135 +502,348 @@ template <class C>
 using BaseOf = typename WarpProducts<C>::B;
 
 // point_double in 3 rounds of products: {X², Y², 2Y·Z}, {B², (X + B)², (3A)²},
-// {E·(D − X3)}. Every lane of the warp returns the result.
-template <class C>
-__device__ __noinline__ void warp_double_to(Pt<C>& r, const Pt<C>& p, int lane) {
+// {E·(D − X3)}. Every thread of the group returns the result.
+template <class C, int G>
+__device__ __noinline__ void group_double_to(Pt<C>& r, const Pt<C>& p, Group<G> g) {
   using W = WarpProducts<C>;
   using B = BaseOf<C>;
+  using BV = typename B::V;
   constexpr int s = W::kSqr, m = W::kMul;
-  typename B::V u, v;
   // round 1: a = X², b = Y², z3 = 2Y·Z
-  if (lane < s) {
-    W::sqr_operands(p.x, lane, u, v);
-  } else if (lane < 2 * s) {
-    W::sqr_operands(p.y, lane - s, u, v);
-  } else {
-    W::mul_operands(C::dbl(p.y), p.z, min(lane - 2 * s, m - 1), u, v);
-  }
-  typename B::V w = B::mul(u, v);
-  const auto a = W::sqr_result(w, 0);
-  const auto b = W::sqr_result(w, s);
-  const auto z3 = W::mul_result(w, 2 * s);
+  const Round<B, G, 2 * s + m> r1(g, [&](int i, BV& u, BV& v) {
+    if (i < s) {
+      W::sqr_operands(p.x, i, u, v);
+    } else if (i < 2 * s) {
+      W::sqr_operands(p.y, i - s, u, v);
+    } else {
+      W::mul_operands(C::dbl(p.y), p.z, i - 2 * s, u, v);
+    }
+  });
+  const auto a = W::sqr_result(r1, 0);
+  const auto b = W::sqr_result(r1, s);
+  const auto z3 = W::mul_result(r1, 2 * s);
   // round 2: c = b², t = (X + b)², f = (3a)²
   const auto e = C::triple(a);
-  if (lane < s) {
-    W::sqr_operands(b, lane, u, v);
-  } else if (lane < 2 * s) {
-    W::sqr_operands(C::add(p.x, b), lane - s, u, v);
-  } else {
-    W::sqr_operands(e, min(lane - 2 * s, s - 1), u, v);
-  }
-  w = B::mul(u, v);
-  const auto c = W::sqr_result(w, 0);
-  const auto t = W::sqr_result(w, s);
-  const auto f = W::sqr_result(w, 2 * s);
+  const Round<B, G, 3 * s> r2(g, [&](int i, BV& u, BV& v) {
+    if (i < s) {
+      W::sqr_operands(b, i, u, v);
+    } else if (i < 2 * s) {
+      W::sqr_operands(C::add(p.x, b), i - s, u, v);
+    } else {
+      W::sqr_operands(e, i - 2 * s, u, v);
+    }
+  });
+  const auto c = W::sqr_result(r2, 0);
+  const auto t = W::sqr_result(r2, s);
+  const auto f = W::sqr_result(r2, 2 * s);
   const auto d = C::dbl(C::sub(C::sub(t, a), c));
   const auto x3 = C::sub(f, C::dbl(d));
   // round 3: e·(d − x3)
-  W::mul_operands(e, C::sub(d, x3), min(lane, m - 1), u, v);
-  w = B::mul(u, v);
-  const auto y3 = C::sub(W::mul_result(w, 0), C::dbl(C::dbl(C::dbl(c))));
+  const Round<B, G, m> r3(g, [&](int i, BV& u, BV& v) {
+    W::mul_operands(e, C::sub(d, x3), i, u, v);
+  });
+  const auto y3 = C::sub(W::mul_result(r3, 0), C::dbl(C::dbl(C::dbl(c))));
   r = {x3, y3, z3};
 }
 
 // point_add in 5 rounds of products: {Z1², Z2², Y1·Z2, Y2·Z1, 2Z1·Z2},
 // {X1·Z2Z2, X2·Z1Z1, Y1Z2·Z2Z2, Y2Z1·Z1Z1}, {(2h)², r2², Z·h}, {h·i, u1·i},
-// {r2·(v − x3), s1·j}; the edge dispatch as `dispatch`, its doubling by
-// `warp_double_to`. Every lane of the warp returns the result.
-template <class C>
-__device__ __noinline__ void warp_add_to(Pt<C>& r, const Pt<C>& p, const Pt<C>& q, int lane) {
+// {r2·(v − x3), s1·j}, with the edge dispatch of `dispatch` taken as soon as
+// its operands are known (the results are the same), its doubling by
+// `group_double_to`. Every thread of the group returns the result.
+template <class C, int G>
+__device__ __noinline__ void group_add_to(Pt<C>& r, const Pt<C>& p, const Pt<C>& q, Group<G> g) {
   using W = WarpProducts<C>;
   using B = BaseOf<C>;
+  using BV = typename B::V;
   constexpr int s = W::kSqr, m = W::kMul;
-  typename B::V u, v;
-  // round 1
-  if (lane < s) {
-    W::sqr_operands(p.z, lane, u, v);
-  } else if (lane < 2 * s) {
-    W::sqr_operands(q.z, lane - s, u, v);
-  } else if (lane < 2 * s + m) {
-    W::mul_operands(p.y, q.z, lane - 2 * s, u, v);
-  } else if (lane < 2 * s + 2 * m) {
-    W::mul_operands(q.y, p.z, lane - 2 * s - m, u, v);
-  } else {
-    W::mul_operands(C::dbl(p.z), q.z, min(lane - 2 * s - 2 * m, m - 1), u, v);
-  }
-  typename B::V w = B::mul(u, v);
-  const auto z1z1 = W::sqr_result(w, 0);
-  const auto z2z2 = W::sqr_result(w, s);
-  const auto y1z2 = W::mul_result(w, 2 * s);
-  const auto y2z1 = W::mul_result(w, 2 * s + m);
-  const auto zz = W::mul_result(w, 2 * s + 2 * m);
-  // round 2
-  if (lane < m) {
-    W::mul_operands(p.x, z2z2, lane, u, v);
-  } else if (lane < 2 * m) {
-    W::mul_operands(q.x, z1z1, lane - m, u, v);
-  } else if (lane < 3 * m) {
-    W::mul_operands(y1z2, z2z2, lane - 2 * m, u, v);
-  } else {
-    W::mul_operands(y2z1, z1z1, min(lane - 3 * m, m - 1), u, v);
-  }
-  w = B::mul(u, v);
-  const auto u1 = W::mul_result(w, 0);
-  const auto h = C::sub(W::mul_result(w, m), u1);
-  const auto s1 = W::mul_result(w, 2 * m);
-  const auto rr = C::sub(W::mul_result(w, 3 * m), s1);
-  const bool h_zero = C::is_zero(h);
-  const bool r_zero = C::is_zero(rr);
-  const auto r2 = C::dbl(rr);
-  // round 3
-  if (lane < s) {
-    W::sqr_operands(C::dbl(h), lane, u, v);
-  } else if (lane < 2 * s) {
-    W::sqr_operands(r2, lane - s, u, v);
-  } else {
-    W::mul_operands(zz, h, min(lane - 2 * s, m - 1), u, v);
-  }
-  w = B::mul(u, v);
-  const auto i = W::sqr_result(w, 0);
-  const auto r2r2 = W::sqr_result(w, s);
-  const auto z3 = W::mul_result(w, 2 * s);
-  // round 4
-  if (lane < m) {
-    W::mul_operands(h, i, lane, u, v);
-  } else {
-    W::mul_operands(u1, i, min(lane - m, m - 1), u, v);
-  }
-  w = B::mul(u, v);
-  const auto j = W::mul_result(w, 0);
-  const auto vv = W::mul_result(w, m);
-  const auto x3 = C::sub(C::sub(r2r2, j), C::dbl(vv));
-  // round 5
-  if (lane < m) {
-    W::mul_operands(r2, C::sub(vv, x3), lane, u, v);
-  } else {
-    W::mul_operands(s1, j, min(lane - m, m - 1), u, v);
-  }
-  w = B::mul(u, v);
-  const auto y3 = C::sub(W::mul_result(w, 0), C::dbl(W::mul_result(w, m)));
   if (C::is_zero(p.z)) {
     r = q;
-  } else if (C::is_zero(q.z)) {
+    return;
+  }
+  if (C::is_zero(q.z)) {
     r = p;
-  } else if (h_zero) {
-    if (r_zero) {
-      warp_double_to<C>(r, p, lane);
+    return;
+  }
+  // round 1
+  const Round<B, G, 2 * s + 3 * m> r1(g, [&](int i, BV& u, BV& v) {
+    if (i < s) {
+      W::sqr_operands(p.z, i, u, v);
+    } else if (i < 2 * s) {
+      W::sqr_operands(q.z, i - s, u, v);
+    } else if (i < 2 * s + m) {
+      W::mul_operands(p.y, q.z, i - 2 * s, u, v);
+    } else if (i < 2 * s + 2 * m) {
+      W::mul_operands(q.y, p.z, i - 2 * s - m, u, v);
+    } else {
+      W::mul_operands(C::dbl(p.z), q.z, i - 2 * s - 2 * m, u, v);
+    }
+  });
+  const auto z1z1 = W::sqr_result(r1, 0);
+  const auto z2z2 = W::sqr_result(r1, s);
+  const auto y1z2 = W::mul_result(r1, 2 * s);
+  const auto y2z1 = W::mul_result(r1, 2 * s + m);
+  const auto zz = W::mul_result(r1, 2 * s + 2 * m);
+  // round 2
+  const Round<B, G, 4 * m> r2(g, [&](int i, BV& u, BV& v) {
+    if (i < m) {
+      W::mul_operands(p.x, z2z2, i, u, v);
+    } else if (i < 2 * m) {
+      W::mul_operands(q.x, z1z1, i - m, u, v);
+    } else if (i < 3 * m) {
+      W::mul_operands(y1z2, z2z2, i - 2 * m, u, v);
+    } else {
+      W::mul_operands(y2z1, z1z1, i - 3 * m, u, v);
+    }
+  });
+  const auto u1 = W::mul_result(r2, 0);
+  const auto h = C::sub(W::mul_result(r2, m), u1);
+  const auto s1 = W::mul_result(r2, 2 * m);
+  const auto rr = C::sub(W::mul_result(r2, 3 * m), s1);
+  if (C::is_zero(h)) {
+    if (C::is_zero(rr)) {
+      group_double_to<C, G>(r, p, g);
     } else {
       r = infinity<C>();
     }
+    return;
+  }
+  const auto r2x = C::dbl(rr);
+  // round 3
+  const Round<B, G, 2 * s + m> r3(g, [&](int i, BV& u, BV& v) {
+    if (i < s) {
+      W::sqr_operands(C::dbl(h), i, u, v);
+    } else if (i < 2 * s) {
+      W::sqr_operands(r2x, i - s, u, v);
+    } else {
+      W::mul_operands(zz, h, i - 2 * s, u, v);
+    }
+  });
+  const auto i4 = W::sqr_result(r3, 0);
+  const auto r2r2 = W::sqr_result(r3, s);
+  const auto z3 = W::mul_result(r3, 2 * s);
+  // round 4
+  const Round<B, G, 2 * m> r4(g, [&](int i, BV& u, BV& v) {
+    if (i < m) {
+      W::mul_operands(h, i4, i, u, v);
+    } else {
+      W::mul_operands(u1, i4, i - m, u, v);
+    }
+  });
+  const auto j = W::mul_result(r4, 0);
+  const auto vv = W::mul_result(r4, m);
+  const auto x3 = C::sub(C::sub(r2r2, j), C::dbl(vv));
+  // round 5
+  const Round<B, G, 2 * m> r5(g, [&](int i, BV& u, BV& v) {
+    if (i < m) {
+      W::mul_operands(r2x, C::sub(vv, x3), i, u, v);
+    } else {
+      W::mul_operands(s1, j, i - m, u, v);
+    }
+  });
+  const auto y3 = C::sub(W::mul_result(r5, 0), C::dbl(W::mul_result(r5, m)));
+  r = {x3, y3, z3};
+}
+
+// point_madd (q affine, Z in {0, 1}) in 5 rounds of products: {Z1², Y2·Z1},
+// {X2·Z1Z1, Y2Z1·Z1Z1}, {H², R², (Z1 + H)²}, {H·I4, X1·I4}, {R·(V − X3),
+// Y1·J}: at most 3 base products a round for G1, 6 for G2. The edge
+// dispatch as in `group_add_to`. Every thread of the group returns the
+// result.
+template <class C, int G>
+__device__ __noinline__ void group_madd_to(Pt<C>& r, const Pt<C>& p, const Pt<C>& q, Group<G> g) {
+  using W = WarpProducts<C>;
+  using B = BaseOf<C>;
+  using BV = typename B::V;
+  constexpr int s = W::kSqr, m = W::kMul;
+  if (C::is_zero(p.z)) {
+    r = q;
+    return;
+  }
+  if (C::is_zero(q.z)) {
+    r = p;
+    return;
+  }
+  // round 1: z1z1 = Z1², yz = Y2·Z1
+  const Round<B, G, s + m> r1(g, [&](int i, BV& u, BV& v) {
+    if (i < s) {
+      W::sqr_operands(p.z, i, u, v);
+    } else {
+      W::mul_operands(q.y, p.z, i - s, u, v);
+    }
+  });
+  const auto z1z1 = W::sqr_result(r1, 0);
+  const auto yz = W::mul_result(r1, s);
+  // round 2: u2 = X2·z1z1, s2 = yz·z1z1
+  const Round<B, G, 2 * m> r2(g, [&](int i, BV& u, BV& v) {
+    if (i < m) {
+      W::mul_operands(q.x, z1z1, i, u, v);
+    } else {
+      W::mul_operands(yz, z1z1, i - m, u, v);
+    }
+  });
+  const auto h = C::sub(W::mul_result(r2, 0), p.x);
+  const auto rhalf = C::sub(W::mul_result(r2, m), p.y);
+  if (C::is_zero(h)) {
+    if (C::is_zero(rhalf)) {
+      group_double_to<C, G>(r, p, g);
+    } else {
+      r = infinity<C>();
+    }
+    return;
+  }
+  const auto rx = C::dbl(rhalf);
+  // round 3: hh = h², rr = r², zh = (Z1 + h)²
+  const Round<B, G, 3 * s> r3(g, [&](int i, BV& u, BV& v) {
+    if (i < s) {
+      W::sqr_operands(h, i, u, v);
+    } else if (i < 2 * s) {
+      W::sqr_operands(rx, i - s, u, v);
+    } else {
+      W::sqr_operands(C::add(p.z, h), i - 2 * s, u, v);
+    }
+  });
+  const auto hh = W::sqr_result(r3, 0);
+  const auto rr = W::sqr_result(r3, s);
+  const auto z3 = C::sub(C::sub(W::sqr_result(r3, 2 * s), z1z1), hh);
+  const auto i4 = C::dbl(C::dbl(hh));
+  // round 4: j = h·i4, v = X1·i4
+  const Round<B, G, 2 * m> r4(g, [&](int i, BV& u, BV& v) {
+    if (i < m) {
+      W::mul_operands(h, i4, i, u, v);
+    } else {
+      W::mul_operands(p.x, i4, i - m, u, v);
+    }
+  });
+  const auto j = W::mul_result(r4, 0);
+  const auto vv = W::mul_result(r4, m);
+  const auto x3 = C::sub(C::sub(rr, j), C::dbl(vv));
+  // round 5: r·(v − x3), Y1·j
+  const Round<B, G, 2 * m> r5(g, [&](int i, BV& u, BV& v) {
+    if (i < m) {
+      W::mul_operands(rx, C::sub(vv, x3), i, u, v);
+    } else {
+      W::mul_operands(p.y, j, i - m, u, v);
+    }
+  });
+  const auto y3 = C::sub(W::mul_result(r5, 0), C::dbl(W::mul_result(r5, m)));
+  r = {x3, y3, z3};
+}
+
+// p at lane j of (*E, n) arrays, stored by the threads of a group that all
+// hold it: thread `rank` stores coordinates rank, rank + G, ... (0 x, 1 y,
+// 2 z).
+template <class C, int G>
+__device__ __forceinline__ void store_spread(int32_t* __restrict__ x, int32_t* __restrict__ y,
+                                             int32_t* __restrict__ z, int64_t n, int64_t j,
+                                             const Pt<C>& p, const Group<G>& g) {
+#pragma unroll
+  for (int which = 0; which < 3; ++which) {
+    if (which % G != g.rank) continue;
+    if (which == 0) {
+      C::store(x, n, j, p.x);
+    } else if (which == 1) {
+      C::store(y, n, j, p.y);
+    } else {
+      C::store(z, n, j, p.z);
+    }
+  }
+}
+
+// One group of the bucket-column kernel: the G threads (thread `rank` of
+// group `g`) that run lane j. px, py: (K, *E, R); qinf, head, slot: (K, R).
+// Per lane, for k < K: acc = q[k] if head[k] else madd(acc, q[k]) (q =
+// infinity where qinf[k]), the JAX kernel's column loop; acc is written to
+// the buckets (*E, num_slots) at slot[k] where slot[k] >= 0, and the last acc
+// to acc_last (*E, R). Nothing else is written. Each thread of the group
+// loads the step's point itself: the group's threads read the same words, a
+// warp's groups neighbouring lanes.
+template <class C, int G>
+__device__ __forceinline__ void bucket_column_group(
+    const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+    const int32_t* __restrict__ qinf, const int32_t* __restrict__ head,
+    const int32_t* __restrict__ slot, int32_t* __restrict__ bx, int32_t* __restrict__ by,
+    int32_t* __restrict__ bz, int32_t* __restrict__ ax, int32_t* __restrict__ ay,
+    int32_t* __restrict__ az, int steps, int64_t lanes, int64_t num_slots, int64_t j,
+    const Group<G>& g) {
+  if (j >= lanes) return;
+  const int64_t step = C::kRows * lanes;  // elements of one coordinate per step
+  Pt<C> acc = infinity<C>();
+#pragma unroll 1
+  for (int k = 0; k < steps; ++k) {
+    const int64_t off = k * step;
+    const int64_t m = k * lanes + j;
+    const bool q_inf = qinf[m] != 0;
+    const Pt<C> q = {C::load(px + off, lanes, j),
+                     q_inf ? C::one() : C::load(py + off, lanes, j),
+                     q_inf ? C::zero() : C::one()};
+    if (head[m] != 0) {
+      acc = q;
+    } else {
+      group_madd_to<C, G>(acc, acc, q, g);
+    }
+    if (slot[m] >= 0) store_spread<C, G>(bx, by, bz, num_slots, slot[m], acc, g);
+  }
+  store_spread<C, G>(ax, ay, az, lanes, j, acc, g);
+}
+
+// One group of the merge kernel: bucket array a (*E, num_slots), updated in
+// place; the trailing partials of the fold's two levels, v1 (*E, n1) at
+// slots key1 (n1) and v2 (*E, n2) at key2 (n2), a slot −1 for none, the slots
+// of a level unique; inv1, inv2 (num_slots): the entry of each level at a
+// slot, or −1. Group e < n1 takes level-1 entry e's bucket, and its level-2
+// partial if any; group n1 + e takes level-2 entry e's bucket where no
+// level-1 partial hits it. The bucket becomes add(add(a, b1), b2), a missing
+// partial being infinity: the two complete additions of the dense merge,
+// on the buckets a partial hits.
+template <class C, int G>
+__device__ __forceinline__ void merge_group(
+    int32_t* __restrict__ ax, int32_t* __restrict__ ay, int32_t* __restrict__ az,
+    const int32_t* __restrict__ v1x, const int32_t* __restrict__ v1y,
+    const int32_t* __restrict__ v1z, const int32_t* __restrict__ key1,
+    const int32_t* __restrict__ v2x, const int32_t* __restrict__ v2y,
+    const int32_t* __restrict__ v2z, const int32_t* __restrict__ key2,
+    const int32_t* __restrict__ inv1, const int32_t* __restrict__ inv2, int64_t n1, int64_t n2,
+    int64_t num_slots, int64_t e, const Group<G>& g) {
+  int64_t b, i1, i2;
+  if (e < n1) {
+    b = key1[e];
+    if (b < 0) return;
+    i1 = e;
+    i2 = inv2[b];
+  } else if (e < n1 + n2) {
+    i2 = e - n1;
+    b = key2[i2];
+    if (b < 0 || inv1[b] >= 0) return;
+    i1 = -1;
   } else {
-    r = {x3, y3, z3};
+    return;
+  }
+  const Pt<C> a = load_point<C>(ax, ay, az, num_slots, b);
+  const Pt<C> p1 = i1 >= 0 ? load_point<C>(v1x, v1y, v1z, n1, i1) : infinity<C>();
+  const Pt<C> p2 = i2 >= 0 ? load_point<C>(v2x, v2y, v2z, n2, i2) : infinity<C>();
+  // the bucket is written back in place: every thread of the group has read
+  // it before any thread stores (threads of a warp need not run in step)
+  __syncwarp(g.mask);
+  Pt<C> r;
+  group_add_to<C, G>(r, a, p1, g);
+  group_add_to<C, G>(r, r, p2, g);
+  store_spread<C, G>(ax, ay, az, num_slots, b, r, g);
+}
+
+// A bucket no partial hits: the dense merge's add(add(a, ∞), ∞) is a, or the
+// backend's infinity (0, 1, 0) where a is at infinity with other
+// coordinates.
+template <class C>
+__device__ __forceinline__ void merge_untouched(int32_t* __restrict__ ax,
+                                                int32_t* __restrict__ ay,
+                                                int32_t* __restrict__ az,
+                                                const int32_t* __restrict__ inv1,
+                                                const int32_t* __restrict__ inv2,
+                                                int64_t num_slots, int64_t b) {
+  if (b >= num_slots || inv1[b] >= 0 || inv2[b] >= 0) return;
+  if (C::is_zero(C::load(az, num_slots, b))) {
+    store_point<C>(ax, ay, az, num_slots, b, infinity<C>());
   }
 }
 
@@ -619,8 +854,8 @@ __device__ __noinline__ void warp_add_to(Pt<C>& r, const Pt<C>& p, const Pt<C>& 
 // `sums`, shared memory), then warp 0 runs Horner's rule acc = S_{W−1};
 // acc = 2^window_bits·acc + S_w for w = W−2 .. 0 and writes acc, (*E, 1).
 // The formulas and their order are those of `msm.window_sums` and
-// `msm.horner`, each spread over the warp's lanes (`warp_add_to`,
-// `warp_double_to`).
+// `msm.horner`, each spread over the warp's 32 lanes (`group_add_to`,
+// `group_double_to`).
 template <class C>
 __device__ __forceinline__ void combine_block(
     const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
@@ -629,18 +864,18 @@ __device__ __forceinline__ void combine_block(
     int32_t* __restrict__ oy, int32_t* __restrict__ oz, int windows, int doublings,
     int window_bits, Pt<C>* sums, int t, int threads) {
   const int64_t lanes = 2 * windows;
-  const int lane = t % 32;
+  const Group<32> lane(t % 32);
 #pragma unroll 1
   for (int w = t / 32; w < windows; w += threads / 32) {
     const Pt<C> a2 = load_point<C>(ax, ay, az, lanes, w);
     const Pt<C> b2 = load_point<C>(bx, by, bz, lanes, w);
     Pt<C> d;
-    warp_add_to<C>(d, b2, {a2.x, C::sub(C::zero(), a2.y), a2.z}, lane);
+    group_add_to<C, 32>(d, b2, {a2.x, C::sub(C::zero(), a2.y), a2.z}, lane);
 #pragma unroll 1
-    for (int i = 0; i < doublings; ++i) warp_double_to<C>(d, d, lane);
+    for (int i = 0; i < doublings; ++i) group_double_to<C, 32>(d, d, lane);
     Pt<C> sum;
-    warp_add_to<C>(sum, d, load_point<C>(ax, ay, az, lanes, windows + w), lane);
-    if (lane == 0) sums[w] = sum;
+    group_add_to<C, 32>(sum, d, load_point<C>(ax, ay, az, lanes, windows + w), lane);
+    if (lane.rank == 0) sums[w] = sum;
   }
   __syncthreads();
   if (t >= 32) return;
@@ -648,10 +883,10 @@ __device__ __forceinline__ void combine_block(
 #pragma unroll 1
   for (int w = windows - 2; w >= 0; --w) {
 #pragma unroll 1
-    for (int i = 0; i < window_bits; ++i) warp_double_to<C>(acc, acc, lane);
-    warp_add_to<C>(acc, acc, sums[w], lane);
+    for (int i = 0; i < window_bits; ++i) group_double_to<C, 32>(acc, acc, lane);
+    group_add_to<C, 32>(acc, acc, sums[w], lane);
   }
-  if (lane == 0) store_point<C>(ox, oy, oz, 1, 0, acc);
+  if (lane.rank == 0) store_point<C>(ox, oy, oz, 1, 0, acc);
 }
 
 }  // namespace manta

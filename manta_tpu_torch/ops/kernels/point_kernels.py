@@ -1,15 +1,17 @@
-"""Whole-formula curve kernels: point op, bucket column, fold, window combine;
-CUDA and plain.
+"""Whole-formula curve kernels: point op, bucket column, fold, window combine,
+bucket merge; CUDA and plain.
 
 Replaces the JAX package's Pallas TPU kernels of
 `manta_tpu/ops/pallas/point_kernels.py`: `_point_op` (public `fused_add`,
-`fused_madd`, `fused_double`), `_column_call` (`accumulate_columns`) and
-`_fold_call` (`fold_columns`), with the backend object `FusedCurveOps` /
-`fused_curve_ops_for`; `combine_windows` runs the MSM's window sums and
-Horner loop (point-op calls in the JAX package) as one kernel. The kernel
-source is `manta_tpu_torch/csrc/point_kernels.cu` (formulas in
-`point_ops.cuh`); its header gives the bound on the H100 and what the
-design does about it.
+`fused_madd`, `fused_double`), `_column_call` (`accumulate_buckets`, which
+writes the run ends straight into their buckets where the TPU kernel writes
+the accumulator after every step) and `_fold_call` (`fold_columns`), with
+the backend object `FusedCurveOps` / `fused_curve_ops_for`;
+`combine_windows` runs the MSM's window sums and Horner loop, and
+`merge_buckets` its two dense bucket merges (point-op calls in the JAX
+package), as one kernel each. The kernel source is
+`manta_tpu_torch/csrc/point_kernels.cu` (formulas in `point_ops.cuh`); its
+header gives the bound on the H100 and what the design does about it.
 
 Layout at the boundary, as in the JAX package: coordinates limb-major int32,
 `(L, ...)` for G1 and `(2, L, ...)` for G2, Montgomery form, lazy [0, 2p);
@@ -28,16 +30,19 @@ integers (`_LaneInts`), with the field ops defined as the integers that the
 limb functions and the kernel compute: a·b·R⁻¹ mod R by Montgomery without
 a final subtract, add and sub against 2p. The column, fold and combine
 versions are Python loops of those formulas with `select`: the column's over
-K, written from the JAX kernel body, the fold's the kernel's segmented scan
-(`_fold_scan`: chunks of a lane's steps, batched over the chunks), and the
-combine's `msm.window_sums` and `msm.horner`. Integers per lane keep the
-loops cheap on the CPU, where a limb-tensor field op costs about the same at
-any small lane count; the CPU tests hold them against the limb `CurveOps`
-and the JAX kernels, and `chip_smoke.py` holds the kernels against them bit
-for bit. The same loops also run over the limb `CurveOps` on the tensors'
-own device (`limb_accumulate_columns`, `limb_fold_columns`,
-`limb_combine_windows`): on the card that is the reference at the prover's
-shapes, where the host integers are too slow.
+K, written from the JAX kernel body (`plain_accumulate_columns`, the JAX
+kernel's twin; `plain_accumulate_buckets` picks its run ends), the fold's
+the kernel's segmented scan (`_fold_scan`: chunks of a lane's steps, batched
+over the chunks), the combine's `msm.window_sums` and `msm.horner`, the
+merge's the two additions on the buckets a partial hits. Integers per lane
+keep the loops cheap on the CPU, where a limb-tensor field op costs about the
+same at any small lane count; the CPU tests hold them against the limb
+`CurveOps` and the JAX kernels, and `chip_smoke.py` holds the kernels
+against them bit for bit. The same loops also run over the limb `CurveOps`
+on the tensors' own device (`limb_accumulate_buckets`, `limb_fold_columns`,
+`limb_combine_windows`, and `limb_merge_buckets`, the dense merge): on the
+card that is the reference at the prover's shapes, where the host integers
+are too slow.
 
 The kernels are built at first use with `nvcc`, one shared library per curve
 (`build.py`), into `build/torch_kernels/`.
@@ -60,13 +65,15 @@ from manta_tpu_torch.ops.kernels import build as B
 from manta_tpu_torch.utils import hostmath
 
 #: launches of the CUDA kernels, counted by the wrappers: the point-op kernel
-#: by formula, the column, fold and combine kernels
-LAUNCHES = {"add": 0, "madd": 0, "double": 0, "columns": 0, "fold": 0, "combine": 0}
+#: by formula, the bucket column, fold, combine and merge kernels
+LAUNCHES = {"add": 0, "madd": 0, "double": 0, "buckets": 0, "fold": 0, "combine": 0,
+            "merge": 0}
 
 #: curve name -> the MANTA_CURVE id of `point_kernels.cu`
 KERNEL_CURVES = {"bn254_g1": 0, "bn254_g2": 1, "bls12_381_g1": 2, "bls12_381_g2": 3}
-#: the MANTA_KERNEL ids of `point_kernels.cu`: one object each
-KERNELS = ("add", "madd", "double", "columns", "fold", "combine")
+#: the MANTA_KERNEL ids of `point_kernels.cu`: one object each (the merge
+#: kernel is in the add kernel's)
+KERNELS = ("add", "madd", "double", "buckets", "fold", "combine")
 
 SOURCE = B.CSRC / "point_kernels.cu"
 
@@ -92,11 +99,12 @@ def _lib(curve_name: str) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for which in ("add", "madd", "double"):
         getattr(lib, f"manta_point_{which}").argtypes = [*[ptr] * 9, i64, ptr]
-    lib.manta_accumulate_columns.argtypes = [*[ptr] * 7, i32, i64, ptr]
+    lib.manta_accumulate_buckets.argtypes = [*[ptr] * 11, i32, i64, i64, ptr]
     lib.manta_fold_columns.argtypes = [*[ptr] * 10, i32, i64, ptr]
     lib.manta_combine_windows.argtypes = [*[ptr] * 9, i32, i32, i32, ptr]
-    for which in ("point_add", "point_madd", "point_double", "accumulate_columns",
-                  "fold_columns", "combine_windows"):
+    lib.manta_merge_buckets.argtypes = [*[ptr] * 13, i64, i64, i64, ptr]
+    for which in ("point_add", "point_madd", "point_double", "accumulate_buckets",
+                  "fold_columns", "combine_windows", "merge_buckets"):
         getattr(lib, f"manta_{which}").restype = ctypes.c_int
     return lib
 
@@ -416,6 +424,34 @@ def plain_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
     return _stream_from_ints(curve, outs, px.device)
 
 
+def _infinity(curve, lanes: int, device) -> JacobianPoint:
+    """The backend's infinity (0, 1, 0), (*E, lanes) coordinates of their own."""
+    z = torch.zeros((*_edims(curve), lanes), dtype=torch.int32, device=device)
+    return JacobianPoint(*(c.contiguous() for c in fused_curve_ops_for(curve).infinity_like(
+        JacobianPoint(z, z, z))))
+
+
+def _pick_run_ends(curve, stream: JacobianPoint, slot, num_slots: int):
+    """The column's stream (K, *E, R) -> (buckets (*E, num_slots): infinity
+    where no slot names them, else the stream's value at the step and lane
+    whose slot it is; the last step (*E, R))."""
+    s = slot.reshape(-1).long()
+    live = s >= 0
+    buckets = _infinity(curve, num_slots, stream.x.device)
+    for b, c in zip(buckets, stream):
+        flat = c.movedim(0, -2).reshape(*c.shape[1:-1], -1)
+        b[..., s[live]] = flat[..., live]
+    return buckets, JacobianPoint(*(c[-1].clone() for c in stream))
+
+
+def plain_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
+    """`plain_accumulate_columns`, then its value at each step and lane with
+    slot >= 0 written to bucket slot of an infinity array (*E, num_slots);
+    returns (the buckets, the last step's accumulator (*E, R))."""
+    stream = plain_accumulate_columns(curve, px, py, qinf, head)
+    return _pick_run_ends(curve, stream, slot, num_slots)
+
+
 def plain_fold_columns(curve, qx, qy, qz, head, sums: bool = False):
     """Per lane: A = q[k] if head[k] else add(A, q[k]), the stream (K, *E, R);
     with `sums`, B = the sum of the A[k], (*E, R). The additions of the
@@ -435,14 +471,72 @@ def plain_combine_windows(curve, a, b, doublings: int, window_bits: int) -> Jaco
     return _point_from_ints(curve, M.horner(lc, sums, window_bits), a.x.device)
 
 
-def limb_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
-    """`plain_accumulate_columns` through the limb `CurveOps` on the
+def _inverse_index(key, num_slots: int) -> torch.Tensor:
+    """(num_slots,) int32: the entry of `key` (n,) that names each slot, or
+    -1 (a key of -1 names none; the keys >= 0 are unique)."""
+    k = key.long()
+    idx = torch.where(k >= 0, k, num_slots)
+    entries = torch.arange(k.numel(), dtype=torch.int32, device=k.device)
+    inv = torch.full((num_slots + 1,), -1, dtype=torch.int32, device=k.device)
+    return inv.scatter_(0, idx, entries)[:num_slots]
+
+
+def plain_merge_buckets(curve, buckets, v1, key1, v2, key2) -> JacobianPoint:
+    """The merge kernel's work, over per-lane integers: the buckets that a
+    partial hits become add(add(a, b1), b2) (a missing partial is
+    infinity); the others stay, but an infinity among them becomes the
+    backend's (0, 1, 0). That is the dense add(add(a, B1), B2), B1 and B2
+    infinity except at their keys (`limb_merge_buckets`). Returns new
+    buckets."""
+    num_slots = buckets.x.shape[-1]
+    inv1, inv2 = _inverse_index(key1, num_slots), _inverse_index(key2, num_slots)
+    hit = torch.nonzero((inv1 >= 0) | (inv2 >= 0)).reshape(-1)
+    i1, i2 = inv1[hit].long(), inv2[hit].long()
+    lc = _lane_curve(curve)
+    inf = _point_to_ints(curve, _infinity(curve, len(hit), buckets.x.device))
+
+    def part(v, i):  # v's lanes i, infinity where i < 0
+        vi = _point_to_ints(curve, JacobianPoint(*(c[..., i.clamp(min=0)] for c in v)))
+        live = i.cpu().numpy() >= 0
+        return JacobianPoint(*(np.where(live, a, b) for a, b in zip(vi, inf)))
+
+    a = _point_to_ints(curve, JacobianPoint(*(c[..., hit] for c in buckets)))
+    r = lc.add(lc.add(a, part(v1, i1)), part(v2, i2))
+    out = JacobianPoint(*(c.clone() for c in buckets))
+    untouched = (inv1 < 0) & (inv2 < 0) & C.curve_ops_for(curve, "limb").is_infinity(buckets)
+    for o, c, ic in zip(out, _point_from_ints(curve, r, buckets.x.device),
+                        _infinity(curve, num_slots, buckets.x.device)):
+        o[..., hit] = c
+        o[..., untouched] = ic[..., untouched]
+    return out
+
+
+def limb_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
+    """`plain_accumulate_buckets` through the limb `CurveOps` on the
     tensors' own device (on CUDA, one field-kernel launch per field op): the
     same loop over the same formulas, fast enough on the card to hold the
-    column kernel against at the prover's shapes."""
+    bucket column against at the prover's shapes."""
     outs = _column_loop(C.curve_ops_for(curve, "limb"), px, py, qinf.bool(), head.bool(),
                         lambda v, k: v[k])
-    return _stream_from_tensors(outs)
+    return _pick_run_ends(curve, _stream_from_tensors(outs), slot, num_slots)
+
+
+def limb_merge_buckets(curve, buckets, v1, key1, v2, key2) -> JacobianPoint:
+    """The dense merge the merge kernel replaced: B1 and B2 infinity but at
+    their keys, add(add(buckets, B1), B2) through the limb `CurveOps` on the
+    tensors' own device."""
+    cops = C.curve_ops_for(curve, "limb")
+    num_slots = buckets.x.shape[-1]
+
+    def dense(v, key):
+        k = key.long()
+        live = k >= 0
+        out = _infinity(curve, num_slots, buckets.x.device)
+        for o, c in zip(out, v):
+            o[..., k[live]] = c[..., live]
+        return out
+
+    return cops.add(cops.add(buckets, dense(v1, key1)), dense(v2, key2))
 
 
 def limb_fold_columns(curve, qx, qy, qz, head, sums: bool = False):
@@ -475,9 +569,10 @@ PLAIN = {
     "add": plain_add,
     "madd": plain_madd,
     "double": plain_double,
-    "columns": plain_accumulate_columns,
+    "buckets": plain_accumulate_buckets,
     "fold": plain_fold_columns,
     "combine": plain_combine_windows,
+    "merge": plain_merge_buckets,
 }
 
 
@@ -577,25 +672,30 @@ def _check_stream(curve, coords, masks) -> tuple:
     return K, shape[-1]
 
 
-def accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
+def accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
     """The K-step bucket accumulation over the sorted affine stream `px, py`
-    (K, *E, R) with masks `qinf, head` (K, R): the accumulator after every
-    step, (K, *E, R) each. See `plain_accumulate_columns`."""
-    K, R = _check_stream(curve, (px, py), (qinf, head))
+    (K, *E, R) with masks `qinf, head` (K, R) and `slot` (K, R) int: the
+    accumulator at each step and lane with slot >= 0, written to bucket
+    slot of a (*E, num_slots) array that is infinity elsewhere (the slots
+    >= 0 unique), and the last step's accumulator (*E, R). Returns (buckets,
+    acc_last). See `plain_accumulate_buckets`."""
+    K, R = _check_stream(curve, (px, py), (qinf, head, slot))
     if not _on_cuda(curve, (px, py)):
-        return plain_accumulate_columns(curve, px, py, qinf, head)
-    if qinf.device != px.device or head.device != px.device:
+        return plain_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots)
+    if any(m.device != px.device for m in (qinf, head, slot)):
         raise ValueError("masks and stream on different devices")
     px, py = px.contiguous(), py.contiguous()
-    masks = [m.to(torch.int32).contiguous() for m in (qinf, head)]
-    out = JacobianPoint(*(torch.empty_like(px) for _ in range(3)))
+    masks = [m.to(torch.int32).contiguous() for m in (qinf, head, slot)]
+    buckets = _infinity(curve, num_slots, px.device)
+    acc_last = JacobianPoint(*(px.new_empty(px.shape[1:]) for _ in range(3)))
     if K and R:
-        err = _lib(curve.name).manta_accumulate_columns(
+        err = _lib(curve.name).manta_accumulate_buckets(
             px.data_ptr(), py.data_ptr(), *(m.data_ptr() for m in masks),
-            *(t.data_ptr() for t in out), K, R, _stream())
-        _check_launch(err, "column")
-        LAUNCHES["columns"] += 1
-    return out
+            *(t.data_ptr() for t in buckets), *(t.data_ptr() for t in acc_last), K, R,
+            num_slots, _stream())
+        _check_launch(err, "bucket column")
+        LAUNCHES["buckets"] += 1
+    return buckets, acc_last
 
 
 def fold_columns(curve, qx, qy, qz, head, sums: bool = False):
@@ -618,6 +718,44 @@ def fold_columns(curve, qx, qy, qz, head, sums: bool = False):
         _check_launch(err, "fold")
         LAUNCHES["fold"] += 1
     return JacobianPoint(*a), None if b is None else JacobianPoint(*b)
+
+
+def merge_buckets(curve, buckets: JacobianPoint, v1: JacobianPoint, key1, v2: JacobianPoint,
+                  key2) -> JacobianPoint:
+    """Add the fold's trailing partials into the buckets: buckets (*E, N);
+    level 1 v1 (*E, n1) at slots key1 (n1,) and level 2 v2 (*E, n2) at key2
+    (n2,), int, -1 for none, the slots of a level unique. Returns
+    add(add(buckets, B1), B2) with B1, B2 infinity but at their keys, bit
+    for bit; on CUDA computed in place in `buckets`, only where a partial
+    hits (and an infinity elsewhere made the backend's (0, 1, 0)). See
+    `plain_merge_buckets`."""
+    edims = _edims(curve)
+    n1, n2 = key1.shape[-1], key2.shape[-1]
+    num_slots = buckets.x.shape[-1]
+    shapes = ((buckets, num_slots), (v1, n1), (v2, n2))
+    if key1.dim() != 1 or key2.dim() != 1 or any(
+        tuple(c.shape) != (*edims, n) for pt, n in shapes for c in pt
+    ):
+        raise ValueError(f"expected (*E, n) = ({', '.join(map(str, edims))}, n) coordinates and "
+                         f"(n,) keys, got {[tuple(c.shape) for pt, _ in shapes for c in pt]}, "
+                         f"{tuple(key1.shape)}, {tuple(key2.shape)}")
+    if not _on_cuda(curve, (*buckets, *v1, *v2)):
+        return plain_merge_buckets(curve, buckets, v1, key1, v2, key2)
+    if key1.device != buckets.x.device or key2.device != buckets.x.device:
+        raise ValueError("keys and buckets on different devices")
+    if any(not c.is_contiguous() for c in buckets):
+        raise ValueError("merge_buckets updates the buckets in place: pass contiguous ones")
+    parts = [c.contiguous() for c in (*v1, *v2)]
+    keys = [k.to(torch.int32).contiguous() for k in (key1, key2)]
+    inv = [_inverse_index(k, num_slots) for k in keys]
+    if num_slots:
+        err = _lib(curve.name).manta_merge_buckets(
+            *(c.data_ptr() for c in buckets), *(c.data_ptr() for c in parts[:3]),
+            keys[0].data_ptr(), *(c.data_ptr() for c in parts[3:]), keys[1].data_ptr(),
+            *(t.data_ptr() for t in inv), n1, n2, num_slots, _stream())
+        _check_launch(err, "merge")
+        LAUNCHES["merge"] += 1
+    return buckets
 
 
 def combine_windows(curve, a: JacobianPoint, b: JacobianPoint, doublings: int,
@@ -657,8 +795,9 @@ class FusedCurveOps(C.CurveOps):
 
     `ops` stays the limb `CoordOps` / `Fq2Ops` (select, is_zero, neg for the
     MSM's glue); add / madd / double launch one kernel each, and the MSM
-    finds `run_columns` / `run_fold_columns` / `combine_windows` and runs its
-    bucket loop, folds and window combine as single launches (`ops/msm.py`)."""
+    finds `run_bucket_columns` / `run_fold_columns` / `merge_buckets` /
+    `combine_windows` and runs its bucket loop, folds, bucket merge and
+    window combine as single launches (`ops/msm.py`)."""
 
     def add(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
         return fused_add(self.curve, p, q)
@@ -669,14 +808,17 @@ class FusedCurveOps(C.CurveOps):
     def double(self, p: JacobianPoint) -> JacobianPoint:
         return fused_double(self.curve, p)
 
-    def run_columns(self, px, py, qinf, head) -> JacobianPoint:
-        return accumulate_columns(self.curve, px, py, qinf, head)
+    def run_bucket_columns(self, px, py, qinf, head, slot, num_slots: int):
+        return accumulate_buckets(self.curve, px, py, qinf, head, slot, num_slots)
 
     def run_fold_columns(self, qx, qy, qz, head, sums: bool = False):
         return fold_columns(self.curve, qx, qy, qz, head, sums)
 
     def combine_windows(self, a, b, doublings: int, window_bits: int) -> JacobianPoint:
         return combine_windows(self.curve, a, b, doublings, window_bits)
+
+    def merge_buckets(self, buckets, v1, key1, v2, key2) -> JacobianPoint:
+        return merge_buckets(self.curve, buckets, v1, key1, v2, key2)
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,17 +9,20 @@ Port of `manta_tpu/ops/msm.py`, limb and fused backends:
    same, the launches 1/W as many): one stable `torch.sort` of each window's
    digits; lane j of a window owns the contiguous sorted chunk [jK, (j+1)K)
    and K mixed additions walk every window's lanes together, the
-   accumulator restarting at digit boundaries. On the fused backend
-   (`_fused`) the K steps are ONE launch of the column kernel over all
+   accumulator restarting at digit boundaries. On the fused backends
+   (`_fused`) the K steps are ONE launch of a column kernel over all
    windows' lanes (K, *E, W·R), where the JAX package launches it once per
    window on R lanes; each lane keeps the chunk and the order of steps it has
-   there, so every bucket value is bit for bit the JAX package's. The kernel
-   takes any lane count, so it also serves the R that the JAX package's
+   there, so every bucket value is bit for bit the JAX package's. The kernels
+   take any lane count, so they also serve the R that the JAX package's
    kernel cannot (not a multiple of 128: there, K launches of the fused
-   mixed addition add up the same per-lane chains). Completed
-   runs land in their bucket (located by `_run_ends_compact`); runs that span
-   chunks leave trailing partials that a segmented fold adds into a second
-   bucket batch.
+   mixed addition add up the same per-lane chains). Completed runs land in
+   their bucket: the fused backend's bucket column writes each run end
+   straight into it (`_column_run_ends`, slots from `_run_end_slots`); the
+   RNS backends' column kernels write the accumulator after every step, of
+   which `_run_ends_compact` locates the run ends (`_column_stream`). Runs
+   that span chunks leave trailing partials that a segmented fold adds into
+   a second bucket batch.
 3. **Bucket reduction**: sum_b b·S_b. On the fold path of the fused backend
    (`msm`'s `fold_path`) the trailing partials and the weighted sum go
    through the fold kernel (`_fold_trailing_fused`, `_weighted_fold_fused`);
@@ -28,6 +31,10 @@ Port of `manta_tpu/ops/msm.py`, limb and fused backends:
    scans). Both batched over all windows. The fold kernel adds in another
    order than the JAX package's (a segmented scan), so the fold path's
    Jacobian coordinates differ from the JAX package's; its points do not.
+   The trailing partials come back compact (each fold level's run ends and
+   their bucket slots), and the fused backend's merge kernel adds them into
+   the buckets in one launch (`merge_buckets`), where the JAX package adds
+   two dense bucket batches.
 4. **Window combine**: Horner over windows (c doublings per window),
    `horner`. On the fold path the window sums (`window_sums`) and Horner's
    rule are one launch of the fused backend's combine kernel
@@ -63,9 +70,11 @@ def _map(pt: JacobianPoint, fn) -> JacobianPoint:
 
 
 def _fused(cops: C.CurveOps) -> bool:
-    """Fused backend: whole point formulas, the column loop and the folds run
-    as single kernels (`ops/kernels/point_kernels.py`)."""
-    return hasattr(cops, "run_columns")
+    """Fused backends: the column loop runs as one kernel, the fused
+    backend's bucket column (`run_bucket_columns`,
+    `ops/kernels/point_kernels.py`) or the RNS backends' stream column
+    (`run_columns`, `ops/kernels/rns_kernels.py`)."""
+    return hasattr(cops, "run_bucket_columns") or hasattr(cops, "run_columns")
 
 
 def window_digits(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:
@@ -244,6 +253,60 @@ def _scatter_drop(binf: JacobianPoint, idx: torch.Tensor, val: JacobianPoint) ->
     return JacobianPoint(*(put(b, v) for b, v in zip(binf, val)))
 
 
+def _run_end_slots(d_t: torch.Tensor, end: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """(K, W·R) int32: w·num_buckets + digit at each step and lane where a
+    run ends in window w's sorted order (`_sorted_layout`'s `end`), else -1:
+    the bucket each run end lands in, unique per window."""
+    steps, num_windows, lanes = d_t.shape
+    base = torch.arange(num_windows, device=d_t.device)[:, None] * num_buckets
+    slot = torch.where(end, d_t + base, -1)
+    return slot.to(torch.int32).reshape(steps, num_windows * lanes)
+
+
+def _column_run_ends(cops, px, py, qinf, head, d_t, end, num_buckets: int):
+    """The fused backend's bucket column: one launch writes each run end
+    into its bucket and the last step's accumulator; no (K, *E, W·R)
+    stream. Returns the (*E, W, num_buckets) buckets (infinity where no run
+    ends) and the trailing accumulators (*E, W, R)."""
+    steps, num_windows, lanes = d_t.shape
+    slot = _run_end_slots(d_t, end, num_buckets)
+    buckets, acc = cops.run_bucket_columns(px, py, qinf, head, slot, num_windows * num_buckets)
+    return (_map(buckets, lambda a: a.reshape(*a.shape[:-1], num_windows, num_buckets)),
+            _map(acc, lambda a: a.reshape(*a.shape[:-1], num_windows, lanes)))
+
+
+def _column_stream(cops, px, py, qinf, head, d_t, end, num_buckets: int):
+    """The RNS backends' column kernel: the accumulator after every step,
+    (K, *E, W·R); the <= num_buckets run-end values of each window are
+    picked out of it and written to their buckets. Same returns as
+    `_column_run_ends`."""
+    steps, num_windows, lanes = d_t.shape
+    ox, oy, oz = cops.run_columns(px, py, qinf, head)
+    stream = JacobianPoint(
+        *(a.reshape(*a.shape[:-1], num_windows, lanes) for a in (ox, oy, oz))
+    )  # (K, *E, W, R)
+
+    # bucket template from the column OUTPUT shapes: the hybrid backend feeds
+    # the kernel limb points and gets RNS accumulators back
+    def tmpl(a):
+        return torch.zeros((*a.shape[1:-1], num_buckets), dtype=a.dtype, device=a.device)
+
+    binf = cops.infinity_like(_map(stream, tmpl))
+    # run ends in each window's stream order [k, j] -> k*R + j
+    d_flat = d_t.permute(1, 0, 2).reshape(num_windows, -1)
+    end_flat = end.permute(1, 0, 2).reshape(num_windows, -1)
+    pos_c, idx_b = _run_ends_compact(d_flat, end_flat, num_buckets)
+
+    def pick(a):  # (K, *E, W, R) -> (*E, W, num_buckets) values at run ends
+        flat = a.movedim(0, -2).reshape(*a.shape[1:-2], num_windows, steps * lanes)
+        return flat.gather(-1, pos_c.expand(*flat.shape[:-2], *pos_c.shape))
+
+    buckets = _scatter_drop(binf, idx_b, _map(stream, pick))
+    # the last step is all that stays: copying it frees the (K, *E, W·R)
+    # streams (0.8–1.6 GB an MSM of the production prover) at return
+    return buckets, _map(stream, lambda a: a[-1].clone())
+
+
 def _bucket_sums_fused(
     cops: C.CurveOps,
     digits: torch.Tensor,
@@ -254,9 +317,10 @@ def _bucket_sums_fused(
     parts: bool = False,
 ):
     """Fused bucket accumulation, all windows at once: one column-kernel
-    launch over the (K, *E, W·R) sorted affine stream emits the accumulator
-    after every step; the <= num_buckets run-end values of each window are
-    picked out of it and written to their buckets.
+    launch over the (K, *E, W·R) sorted affine stream; the <= num_buckets
+    run-end values of each window land in their buckets
+    (`_column_run_ends` on the fused backend, `_column_stream` on the RNS
+    backends).
 
     Returns the (*E, W, num_buckets) buckets; with `parts`, instead the
     run-end buckets, the trailing accumulators (*E, W, R) and d_t (K, W, R)
@@ -283,35 +347,12 @@ def _bucket_sums_fused(
         neg_t = neg_t.permute(1, 0, 2).reshape(steps, *(1,) * (py.ndim - 2), -1)
         py = torch.where(neg_t, gather(po.neg(points.y)), py)
     qinf = cops.affine_infinity_mask(points)[perm].permute(1, 0, 2)  # (K, W, R)
-    ox, oy, oz = cops.run_columns(
-        px, py, qinf.reshape(steps, -1), head.reshape(steps, -1)
-    )
-    stream = JacobianPoint(
-        *(a.reshape(*a.shape[:-1], num_windows, lanes) for a in (ox, oy, oz))
-    )  # (K, *E, W, R)
-
-    # bucket template from the column OUTPUT shapes: the hybrid backend feeds
-    # the kernel limb points and gets RNS accumulators back
-    def tmpl(a):
-        return torch.zeros((*a.shape[1:-1], num_buckets), dtype=a.dtype, device=a.device)
-
-    binf = cops.infinity_like(_map(stream, tmpl))
-    # run ends in each window's stream order [k, j] -> k*R + j
-    d_flat = d_t.permute(1, 0, 2).reshape(num_windows, -1)
-    end_flat = end.permute(1, 0, 2).reshape(num_windows, -1)
-    pos_c, idx_b = _run_ends_compact(d_flat, end_flat, num_buckets)
-
-    def pick(a):  # (K, *E, W, R) -> (*E, W, num_buckets) values at run ends
-        flat = a.movedim(0, -2).reshape(*a.shape[1:-2], num_windows, steps * lanes)
-        return flat.gather(-1, pos_c.expand(*flat.shape[:-2], *pos_c.shape))
-
-    buckets_a = _scatter_drop(binf, idx_b, _map(stream, pick))
-    # the last step is all that stays: copying it frees the (K, *E, W·R)
-    # streams (0.8–1.6 GB an MSM of the production prover) at return
-    acc_last = _map(stream, lambda a: a[-1].clone())
-    del stream, ox, oy, oz
+    column = _column_run_ends if hasattr(cops, "run_bucket_columns") else _column_stream
+    buckets_a, acc_last = column(cops, px, py, qinf.reshape(steps, -1),
+                                 head.reshape(steps, -1), d_t, end, num_buckets)
     if parts:
         return buckets_a, acc_last, d_t
+    binf = cops.infinity_like(buckets_a)
     buckets_b = _fold_partials(cops, acc_last, d_t, binf, num_buckets)
     return cops.add(buckets_a, buckets_b)
 
@@ -384,10 +425,13 @@ def _fold_trailing_fused(
     kernel (2 levels), all windows at once: the semantics of `_fold_partials`.
 
     acc_last: (*E, W, R) trailing accumulators; last_d/first_d: (W, R) last
-    and first digit of each chunk. Returns two (*E, W, num_buckets) bucket
-    arrays (disjoint deposits; the caller adds them in). Level 2 runs on W
-    lanes where the JAX package pads them to 128 with dead rows, which
-    deposit nothing."""
+    and first digit of each chunk. Returns each level's deposits compact,
+    (values (*E, n), slots (n,)): the fold's value at every step and lane and
+    the bucket slot w·num_buckets + digit where a run ends there, else -1;
+    the slots of a level are unique. The JAX package scatters them into two
+    (*E, W, num_buckets) bucket arrays instead; the caller adds them in
+    (`merge_buckets`). Level 2 runs on W lanes where the JAX package pads
+    them to 128 with dead rows, which deposit nothing."""
     o = cops.ops
     num_windows, lanes = last_d.shape
     r2 = 128
@@ -407,7 +451,7 @@ def _fold_trailing_fused(
     def level(val, key, rows, k):
         """One fold level over `rows` sequences (key (rows, seqlen), val
         (*E, rows, seqlen)): chunk-transpose into (k, rows*seqlen/k), run the
-        fold kernel, deposit the run ends into a (rows*bp) bucket array."""
+        fold kernel; its values and their slots at the run ends."""
         kt = _merge_lanes(_chunk_t(key, k))  # (k, lanes)
         ct = _map(val, lambda a: _merge_lanes(_chunk_t(a, k)))
         first = torch.ones((1, kt.shape[1]), dtype=torch.bool, device=dev)
@@ -417,17 +461,9 @@ def _fold_trailing_fused(
         end_seq = torch.cat([key[:, :-1] != key[:, 1:], last], -1)
         end_flat = _merge_lanes(_chunk_t(end_seq, k)).reshape(-1)
         end_key = torch.where(end_flat, kt.reshape(-1), dead)
-
-        def tmpl(a):
-            return torch.zeros((*a.shape[1:-1], dead), dtype=a.dtype, device=a.device)
-
-        binf = cops.infinity_like(_map(astream, tmpl))
+        slots = torch.where(end_key < dead, end_key // bp * num_buckets + end_key % bp, -1)
         flat = _map(astream, lambda a: a.movedim(0, -2).reshape(*a.shape[1:-1], -1))
-        deposits = _scatter_drop(binf, end_key, flat)
-        return deposits, _map(astream, lambda a: a[-1]), kt
-
-    def unflat(dep):
-        return _map(dep, lambda a: a.reshape(*a.shape[:-1], num_windows, bp)[..., :num_buckets])
+        return (flat, slots), _map(astream, lambda a: a[-1]), kt
 
     # level 1: W rows of R-long sequences -> (K2 steps, W*128 lanes)
     b1, trail1, kt1 = level(val, key, num_windows, k2)
@@ -439,7 +475,7 @@ def _fold_trailing_fused(
     val2 = JacobianPoint(*(o.select(cont2, a, i) for a, i in zip(trail1, inf2)))
     rows2 = _map(val2, lambda a: a.reshape(*a.shape[:-1], num_windows, r2))
     b2, _, _ = level(rows2, key2.reshape(num_windows, r2), num_windows, r2)
-    return unflat(b1), unflat(b2)
+    return b1, b2
 
 
 def _weighted_fold_fused(cops: C.CurveOps, buckets: JacobianPoint, num_buckets: int, signed: bool):
@@ -622,8 +658,12 @@ def msm(
         bucket_a, acc_last, d_t = _bucket_sums_fused(
             cops, digits, points, num_buckets, steps, negs, parts=True
         )
-        b1, b2 = _fold_trailing_fused(cops, acc_last, d_t[-1], d_t[0], num_buckets)
-        buckets = cops.add(cops.add(bucket_a, b1), b2)
+        (v1, key1), (v2, key2) = _fold_trailing_fused(cops, acc_last, d_t[-1], d_t[0],
+                                                      num_buckets)
+        shape = bucket_a.x.shape
+        merged = cops.merge_buckets(_map(bucket_a, lambda a: a.reshape(*shape[:-2], -1)),
+                                    v1, key1, v2, key2)
+        buckets = _map(merged, lambda a: a.reshape(shape))
         a, b, doublings = _weighted_fold_fused(cops, buckets, num_buckets, signed)
         return cops.combine_windows(a, b, doublings, window_bits)
     buckets = _bucket_sums(cops, digits, points, num_buckets, steps, negs)

@@ -89,7 +89,9 @@ def test_other_backends_raise(backend):
         return
     cops = C.curve_ops_for(TH.BN254_G1, backend)
     assert cops.backend == ("fused" if backend == "fused" else "rns")
-    assert hasattr(cops, "run_columns")
+    # the fused backend's column writes run ends only; the RNS ones a stream
+    assert hasattr(cops, "run_bucket_columns") == (backend == "fused")
+    assert hasattr(cops, "run_columns") == (backend != "fused")
     assert hasattr(cops, "point_ops") == (backend == "rns_hybrid")
 
 

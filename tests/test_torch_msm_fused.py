@@ -7,10 +7,13 @@ the fold path runs) and on BN254 G1. The stages of the fold path are held
 against the JAX functions called eagerly on TOY (their kernels in Pallas
 interpret mode): `_run_ends_compact` and `_bucket_sums_fused` (one column
 launch over all windows here, one per window there) bit for bit;
-`_fold_trailing_fused` and `_weighted_fold_fused` after `decode_points`,
-because the port's fold kernel is a segmented scan that adds in another
-order, and bit for bit with the scan cut to one thread per lane (the JAX
-kernel's sequential order). Inputs come from numpy seeds; tolerance: none
+`_fold_trailing_fused` (whose compact run ends are scattered into the JAX
+function's dense bucket arrays here), the bucket merge and
+`_weighted_fold_fused` after `decode_points`, because the port's fold
+kernel is a segmented scan that adds in another order, and bit for bit with
+the scan cut to one thread per lane (the JAX kernel's sequential order).
+The fused backend's MSM never runs the column stream path that the RNS
+backends keep. Inputs come from numpy seeds; tolerance: none
 (exact integer arithmetic). Everything runs on CPU tensors (the plain
 versions).
 """
@@ -123,6 +126,58 @@ def test_toy_fold_path_runs_the_fold_and_combine_kernels(monkeypatch):
     assert calls == {"fold": 4, "combine": 1}
 
 
+def test_toy_fold_path_runs_bucket_column_and_merge_once(monkeypatch):
+    """The fold path accumulates its buckets with one bucket-column call and
+    adds the trailing partials with one merge call, and calls no point-op
+    formula: the launches an MSM on the card (1 + 1, where the dense merge
+    took 2 point-op adds)."""
+    calls = {"accumulate_buckets": 0, "merge_buckets": 0, "_point_op": 0}
+    for name in calls:
+        def counted(*args, _fn=getattr(PK, name), _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(PK, name, counted)
+    rng = np.random.default_rng(48)
+    r = JH.TOY_G1.scalar_field.modulus
+    _fused_msm(JH.TOY_G1, TH.TOY_G1, _toy_points(rng, 2048), scalars_np(rng, 2048, r), 9, 16)
+    assert calls == {"accumulate_buckets": 1, "merge_buckets": 1, "_point_op": 0}
+
+
+@pytest.mark.parametrize("backend", ["fused", "rns_fused", "rns_hybrid"])
+def test_column_stream_path_only_on_rns_backends(backend, monkeypatch):
+    """Dispatch by backend, not a fallback: the fused backend's buckets come
+    from the bucket column (`_column_run_ends`) and never from the column
+    stream (`_column_stream`), which the RNS backends keep; all three give
+    the same buckets."""
+    calls = {"_column_run_ends": 0, "_column_stream": 0}
+    for name in calls:
+        def counted(*args, _fn=getattr(M, name), _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(M, name, counted)
+    rng = np.random.default_rng(62)
+    curve = TH.BN254_G1
+    num_windows, n, steps, nb = 2, 48, 8, 9
+    digits = torch.from_numpy(np.sort(rng.integers(0, nb, (num_windows, n)), axis=-1))
+    pts = list(_multiples("bn254_g1", n))
+    pts[5] = None
+    cops = C.curve_ops_for(curve, backend)
+    got = M._bucket_sums(cops, digits, cops.encode_points(pts, "cpu"), nb, steps)
+    want = {"fused": (1, 0)}.get(backend, (0, 1))
+    assert (calls["_column_run_ends"], calls["_column_stream"]) == want
+    flat = JacobianPoint(*(c.reshape(*c.shape[:-2], -1) for c in got))
+    for w in range(num_windows):
+        for b in range(nb):
+            members = [p for p, d in zip(pts, digits[w].tolist()) if d == b]
+            acc = None
+            for p in members:
+                acc = JH.BN254_G1.add(acc, p)
+            assert cops.decode_points(JacobianPoint(*(c[..., w * nb + b : w * nb + b + 1]
+                                                      for c in flat))) == [acc]
+
+
 def test_bn254_g1_fold_path_matches_closed_form():
     """Points (i+1)·G, as `bench.py` checks: the MSM is (sum (i+1)·s_i)·G,
     one host scalar multiplication instead of the oracle's 2048."""
@@ -176,6 +231,27 @@ def _sequential_fold(monkeypatch):
     monkeypatch.setattr(PK, "fold_threads", lambda steps: 1)
 
 
+def _dense(level, num_windows: int, num_buckets: int) -> JacobianPoint:
+    """A level's compact run ends (values (*E, n), slots (n,)) scattered into
+    an infinity bucket array (*E, W, num_buckets), as the JAX function
+    returns them."""
+    vals, slots = level
+    out = PK._infinity(TH.TOY_G1, num_windows * num_buckets, "cpu")
+    live = slots >= 0
+    for o, v in zip(out, vals):
+        o[..., slots[live]] = v[..., live]
+    return JacobianPoint(*(c.reshape(*c.shape[:-1], num_windows, num_buckets) for c in out))
+
+
+def _toy_trailing(rng, num_windows, lanes, num_buckets):
+    """Trailing accumulators and digits with long runs: partials continue
+    across chunks and lanes. Returns (numpy coords, port acc, last, first)."""
+    arrs, acc = _toy_jacobian(rng, (num_windows, lanes))
+    d = np.sort(rng.integers(0, num_buckets, (num_windows, 2 * lanes)), axis=-1)
+    d[1, :300] = 7  # one bucket over many chunks
+    return arrs, acc, d[:, 1::2], d[:, 0::2]
+
+
 @pytest.mark.parametrize("threads", ["scan", "sequential"])
 def test_fold_trailing_fused_equal_to_jax_after_decode(threads, monkeypatch):
     """W = 2 windows of R = 256 lanes (two chunks per level-1 lane), digits
@@ -184,10 +260,7 @@ def test_fold_trailing_fused_equal_to_jax_after_decode(threads, monkeypatch):
     thread, bit for bit."""
     rng = np.random.default_rng(46)
     num_windows, lanes, num_buckets = 2, 256, 129
-    arrs, acc = _toy_jacobian(rng, (num_windows, lanes))
-    d = np.sort(rng.integers(0, num_buckets, (num_windows, 2 * lanes)), axis=-1)
-    d[1, :300] = 7  # one bucket over many chunks
-    first, last = d[:, 0::2], d[:, 1::2]
+    arrs, acc, last, first = _toy_trailing(rng, num_windows, lanes, num_buckets)
     if threads == "sequential":
         _sequential_fold(monkeypatch)
     got = M._fold_trailing_fused(
@@ -200,9 +273,40 @@ def test_fold_trailing_fused_equal_to_jax_after_decode(threads, monkeypatch):
         jnp.asarray(last.astype(np.uint32)), jnp.asarray(first.astype(np.uint32)), num_buckets,
     )
     for g, w in zip(got, want):
+        g = _dense(g, num_windows, num_buckets)
         _assert_decoded_equal(g, w)
         if threads == "sequential":
             _assert_points_equal(g, w)
+
+
+@pytest.mark.parametrize("threads", ["scan", "sequential"])
+def test_merge_buckets_equal_to_jax_dense_merge_after_decode(threads, monkeypatch):
+    """The fold path's bucket merge: run-end buckets plus both levels of
+    trailing partials, by the port's merge on the compact run ends against
+    the JAX package's two dense fused additions over its `_fold_trailing_fused`
+    arrays (its point-op kernel in interpret mode): equal points; with the
+    scan cut to one thread a lane, bit for bit."""
+    rng = np.random.default_rng(63)
+    num_windows, lanes, num_buckets = 2, 256, 129
+    arrs, acc, last, first = _toy_trailing(rng, num_windows, lanes, num_buckets)
+    b_arrs, bucket_a = _toy_jacobian(rng, (num_windows, num_buckets))
+    if threads == "sequential":
+        _sequential_fold(monkeypatch)
+    cops = C.curve_ops_for(TH.TOY_G1, "fused")
+    (v1, k1), (v2, k2) = M._fold_trailing_fused(
+        cops, acc, torch.from_numpy(last), torch.from_numpy(first), num_buckets)
+    flat = JacobianPoint(*(c.reshape(c.shape[0], -1) for c in bucket_a))
+    got = cops.merge_buckets(flat, v1, k1, v2, k2)
+    jops = JPK.fused_curve_ops_for(JH.TOY_G1)
+    jb1, jb2 = JM._fold_trailing_fused(
+        jops, JC.JacobianPoint(*map(jnp.asarray, arrs)),
+        jnp.asarray(last.astype(np.uint32)), jnp.asarray(first.astype(np.uint32)), num_buckets,
+    )
+    ja = JC.JacobianPoint(*map(jnp.asarray, b_arrs))
+    want = [np.asarray(c).reshape(c.shape[0], -1) for c in jops.add(jops.add(ja, jb1), jb2)]
+    _assert_decoded_equal(got, want)
+    if threads == "sequential":
+        _assert_points_equal(got, want)
 
 
 @pytest.mark.parametrize("threads", ["scan", "sequential"])

@@ -1,12 +1,14 @@
 """PyTorch port: the fused curve kernels' plain versions vs the JAX package.
 
-`ops/kernels/point_kernels.py` holds the CUDA point-op, column, fold and
-combine kernels and their plain versions; on CPU tensors the public
-functions take the plain versions. They are held here, bit for bit on the
-raw limb arrays, against the JAX package's Pallas kernels (`manta_tpu/ops/
-pallas/point_kernels.py`) in interpret mode on the TOY curve, against the
-port's limb `CurveOps` on BN254 and BLS12-381 G1/G2, and, after
-`decode_points`, against `hostmath`. The fold is a segmented scan that adds
+`ops/kernels/point_kernels.py` holds the CUDA point-op, bucket-column,
+fold, combine and merge kernels and their plain versions; on CPU tensors the
+public functions take the plain versions. They are held here, bit for bit on
+the raw limb arrays, against the JAX package's Pallas kernels (`manta_tpu/
+ops/pallas/point_kernels.py`) in interpret mode on the TOY curve (the bucket
+column against the JAX column kernel followed by the JAX MSM's run-end
+pick), against the port's limb `CurveOps` on BN254 and BLS12-381 G1/G2 (the
+merge against the dense additions it replaces), and, after `decode_points`,
+against `hostmath`. The fold is a segmented scan that adds
 in another order than the JAX kernel: its points are held after
 `decode_points` against the JAX kernel and the sequential fold, and with one
 thread per lane (the sequential order) bit for bit. Inputs come from numpy
@@ -21,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as CS
+from manta_tpu.ops import msm as JM
 from manta_tpu.ops.curve import JacobianPoint as JPoint
 from manta_tpu.ops.pallas import point_kernels as JPK
 from manta_tpu.utils import hostmath as JH
@@ -123,11 +127,13 @@ def _masks(rng, K, R):
 
 
 def test_toy_accumulate_columns_equal_jax_kernel():
+    """The JAX column kernel's twin (the stream the bucket column picks its
+    run ends from)."""
     rng = np.random.default_rng(52)
     K, R = 8, 128
     px, py, _ = _toy_stream(rng, K, R, jacobian=False)
     head, qinf = _masks(rng, K, R)
-    got = PK.accumulate_columns(
+    got = PK.plain_accumulate_columns(
         TH.TOY_G1, F.as_tensor(px, "cpu"), F.as_tensor(py, "cpu"),
         torch.from_numpy(qinf), torch.from_numpy(head),
     )
@@ -135,6 +141,46 @@ def test_toy_accumulate_columns_equal_jax_kernel():
         JH.TOY_G1, jnp.asarray(px), jnp.asarray(py), jnp.asarray(qinf), jnp.asarray(head)
     )
     _assert_equal(got, want)
+
+
+def test_toy_accumulate_buckets_equal_jax_column_and_pick():
+    """The bucket column's plain version (and the CPU path of
+    `accumulate_buckets`) against the JAX package's column kernel in
+    interpret mode, one call per window on its 128 lanes, followed by the
+    JAX MSM's run-end pick (`_run_ends_compact`, then each run end's value
+    written to its bucket): bit-equal buckets and last accumulators, on the
+    edge streams of `chip_smoke.bucket_stream` (q, -q lanes, a repeated
+    point, one digit over whole lanes, runs ending on a chunk's first and
+    last step, empty buckets, a lane at infinity)."""
+    rng = np.random.default_rng(60)
+    K, W, R, nb = 8, 2, 128, 257
+    limb = C.curve_ops_for(TH.TOY_G1, "limb")
+    px, py, qinf, head, slot, num_slots = CS.bucket_stream(TH.TOY_G1, limb, rng, K, W, R, nb,
+                                                           "cpu")
+    got_b, got_a = PK.accumulate_buckets(TH.TOY_G1, px, py, qinf, head, slot, num_slots)
+    plain_b, plain_a = PK.plain_accumulate_buckets(TH.TOY_G1, px, py, qinf, head, slot, num_slots)
+    _assert_equal(got_b, _numpy(plain_b))
+    _assert_equal(got_a, _numpy(plain_a))
+    inf = [F.to_numpy(c) for c in PK._infinity(TH.TOY_G1, nb, "cpu")]
+    d_t = (slot.numpy().reshape(K, W, R) - np.arange(W)[:, None] * nb)
+    for w in range(W):
+        lanes = slice(w * R, (w + 1) * R)
+        stream = JPK.accumulate_columns(
+            JH.TOY_G1, *(jnp.asarray(F.to_numpy(c)[..., lanes]) for c in (px, py)),
+            jnp.asarray(qinf[:, lanes].numpy()), jnp.asarray(head[:, lanes].numpy()))
+        end = slot[:, lanes].numpy() >= 0
+        # the window's digits at its run ends; the JAX pick needs only those
+        digits = np.where(end, d_t[:, w], 0).T.reshape(-1)
+        pos, idx = JM._run_ends_compact(jnp.asarray(digits.astype(np.int32)),
+                                        jnp.asarray(end.T.reshape(-1)), nb)
+        pos, idx = np.asarray(pos), np.asarray(idx)
+        for c, gb, ga, ic in zip(stream, got_b, got_a, inf):
+            flat = np.asarray(c).transpose(1, 2, 0).reshape(c.shape[1], -1)  # (L, R·K), j·K + k
+            want = ic.copy()
+            live = idx < nb
+            want[..., idx[live]] = flat[..., pos[live]]
+            np.testing.assert_array_equal(F.to_numpy(gb)[..., w * nb : (w + 1) * nb], want)
+            np.testing.assert_array_equal(F.to_numpy(ga)[..., lanes], np.asarray(c)[-1])
 
 
 def _decoded_steps(cops, stream):
@@ -222,7 +268,7 @@ def test_plain_columns_and_fold_match_hostmath(name):
         return c.reshape(*c.shape[:-1], R, K).movedim(-1, 0).contiguous()
 
     qinf = np.array([[pts[j * K + k] is None for j in range(R)] for k in range(K)])
-    cols = PK.accumulate_columns(tcurve, stream(enc.x), stream(enc.y),
+    cols = PK.plain_accumulate_columns(tcurve, stream(enc.x), stream(enc.y),
                                  torch.from_numpy(qinf), torch.from_numpy(head))
     fa, fb = PK.fold_columns(tcurve, *(stream(c) for c in limb.double(enc)),
                              torch.from_numpy(head), True)
@@ -241,8 +287,8 @@ def test_plain_columns_and_fold_match_hostmath(name):
 
 @pytest.mark.parametrize("name", ["bn254_g1", "bls12_381_g2"])
 def test_limb_columns_and_fold_equal_plain(name):
-    """The column loop and the fold's scan over the limb `CurveOps` (the
-    reference that `chip_smoke.py` holds the kernels against at the
+    """The bucket column's loop and the fold's scan over the limb `CurveOps`
+    (the reference that `chip_smoke.py` holds the kernels against at the
     prover's shapes) equal the plain versions, edge masks included; the fold
     at K = 37, 4 threads a lane of chunks of 10 steps (the last one 7)."""
     jcurve, tcurve = CURVES[name]
@@ -257,8 +303,12 @@ def test_limb_columns_and_fold_equal_plain(name):
         return c.reshape(*c.shape[:-1], R, k).movedim(-1, 0).contiguous()
 
     px, py = stream(enc.x, K), stream(enc.y, K)
-    _assert_equal(PK.limb_accumulate_columns(tcurve, px, py, qinf, head),
-                  _numpy(PK.plain_accumulate_columns(tcurve, px, py, qinf, head)))
+    slot = torch.full((K, R), -1, dtype=torch.int32)  # 20 run ends, each its own bucket
+    slot.view(-1)[torch.from_numpy(rng.choice(K * R, 20, replace=False))] = torch.arange(
+        20, dtype=torch.int32)
+    for got, want in zip(PK.limb_accumulate_buckets(tcurve, px, py, qinf, head, slot, 20),
+                         PK.plain_accumulate_buckets(tcurve, px, py, qinf, head, slot, 20)):
+        _assert_equal(got, _numpy(want))
     K = 37
     enc = limb.encode_points(host_points(jcurve, rng, K * R), "cpu")
     q = [stream(c, K) for c in limb.double(enc)]
@@ -346,6 +396,37 @@ def test_combine_windows_equals_python_lines(name):
     _assert_equal(M.horner(limb, wins, c), _numpy(acc))
 
 
+@pytest.mark.parametrize("name", ["toy_g1", "bn254_g1", "bn254_g2"])
+def test_merge_buckets_equal_dense_merge(name):
+    """The merge's plain version (and the CPU path of `merge_buckets`) is
+    bit-equal to the dense merge it replaced, add(add(a, B1), B2) with B1,
+    B2 infinity but at their slots, through the limb `CurveOps` and through
+    the fused point-op formulas: on `chip_smoke.merge_inputs`' edges (a
+    partial -a and a, an infinite partial, buckets at infinity as (0, 1, 0),
+    with x kept and with Z = p, one hit by level 2 only, dead keys)."""
+    jcurve, tcurve = {"toy_g1": (JH.TOY_G1, TH.TOY_G1), **CURVES}[name]
+    rng = np.random.default_rng(61)
+    limb = C.curve_ops_for(tcurve, "limb")
+    a, v1, k1, v2, k2 = CS.merge_inputs(tcurve, limb, rng, 90, 40, 24, "cpu")
+    want = PK.limb_merge_buckets(tcurve, a, v1, k1, v2, k2)
+    got = PK.merge_buckets(tcurve, a, v1, k1, v2, k2)
+    _assert_equal(got, _numpy(want))
+    _assert_equal(PK.plain_merge_buckets(tcurve, a, v1, k1, v2, k2), _numpy(want))
+    fused = C.curve_ops_for(tcurve, "fused")
+
+    def dense(v, k):
+        out = PK._infinity(tcurve, 90, "cpu")
+        for o, c in zip(out, v):
+            o[..., k[k >= 0]] = c[..., k >= 0]
+        return out
+
+    _assert_equal(fused.add(fused.add(a, dense(v1, k1)), dense(v2, k2)), _numpy(want))
+    hit = set(k1[k1 >= 0].tolist()) | set(k2[k2 >= 0].tolist())
+    assert 2 in hit and 1 not in hit and 3 not in hit  # the edges are there
+    for c, i in zip(got, PK._infinity(tcurve, 90, "cpu")):  # infinity made (0, 1, 0)
+        assert torch.equal(c[..., 1:4:2], i[..., 1:4:2])
+
+
 # ---------------------------------------------------------------------------
 # Wrappers and build
 # ---------------------------------------------------------------------------
@@ -363,11 +444,23 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError, match="one shape"):
         PK.fused_add(TH.BN254_G1, p, JacobianPoint(*(c[..., :2] for c in p)))
     stream = p.x.reshape(16, 2, 2).movedim(1, 0).contiguous()  # (K=2, L, R=2)
-    with pytest.raises(ValueError, match="masks"):
-        PK.accumulate_columns(TH.BN254_G1, stream, stream, torch.zeros(2, 3, dtype=torch.bool),
-                              torch.zeros(2, 2, dtype=torch.bool))
+    ok = torch.zeros(2, 2, dtype=torch.bool)
+    for bad in range(3):  # qinf, head, slot: each (K, R)
+        masks = [ok, ok, ok.int()]
+        masks[bad] = torch.zeros(2, 3, dtype=masks[bad].dtype)
+        with pytest.raises(ValueError, match="masks"):
+            PK.accumulate_buckets(TH.BN254_G1, stream, stream, *masks, 4)
     with pytest.raises(ValueError, match="2W"):
         PK.combine_windows(TH.BN254_G1, p, JacobianPoint(*(c[..., :2] for c in p)), 1, 13)
+    keys = torch.tensor([0, -1])
+    two = JacobianPoint(*(c[..., :2] for c in p))
+    with pytest.raises(ValueError, match="keys"):  # partials and keys of other lengths
+        PK.merge_buckets(TH.BN254_G1, p, two, torch.tensor([0, 1, 2]), two, keys)
+    with pytest.raises(ValueError, match="keys"):  # keys of two dimensions
+        PK.merge_buckets(TH.BN254_G1, p, two, keys[None], two, keys)
+    with pytest.raises(ValueError, match="device"):
+        PK.merge_buckets(TH.BN254_G1, meta, JacobianPoint(*(c[..., :2] for c in meta)), keys,
+                         JacobianPoint(*(c[..., :2] for c in meta)), keys)
     assert PK.library("bn254_g2").units == tuple(
         ("MANTA_CURVE=1", f"MANTA_KERNEL={k}") for k in range(6))
 

@@ -9,7 +9,7 @@ proves `assignments[0]` of `.bench_prover_pt_aux.json` once to warm up, then
 proves it again under `torch.profiler` and prints: the wall time of each
 phase, the device's busy time (sum of CUDA kernel times) and idle share of
 the proof's wall time, the launches of each field-kernel op, point kernel
-(point ops, columns, folds, combines) and RNS kernel, the device time of
+(point ops, bucket columns, folds, combines, merges) and RNS kernel, the device time of
 each kind of point kernel, and the kernels that take the most device time. With --out, the full
 `key_averages` table is written to PATH.
 Needs one CUDA device.
@@ -95,10 +95,12 @@ def main() -> int:
         for t, count, key in rows:
             if "manta::Base<" not in key and "manta::Ext<" not in key:
                 continue
-            for kind in ("point_kernel", "column_kernel", "fold_kernel", "combine_kernel"):
+            for kind in ("point_kernel", "bucket_column_kernel", "fold_kernel", "combine_kernel",
+                         "merge_kernel"):
                 if kind in key:
                     ms, n = kinds.get(kind, (0.0, 0))
                     kinds[kind] = (ms + t / 1e3, n + count)
+                    break
         print("point kernels by kind (device ms, launches): " + json.dumps(
             {k: [ms, n] for k, (ms, n) in kinds.items()}))
         print("top kernels by device time (us total, launches, name):")
