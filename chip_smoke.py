@@ -33,10 +33,15 @@ phase catches its own failure:
    level-1 and 300 level-2 partials (`merge_inputs`: partials -a and a,
    infinite partials, buckets at infinity with other coordinates, dead
    keys), also against the dense additions it replaced;
-5. the same for the RNS kernels (point op, column, hybrid column) against
-   their plain versions, bit for bit, on the four curves, and the RNS
-   kernels' table-free zero test against the 2^13-row zero-class table on
-   the values k·p and k·p ± 1, k < 8192;
+5. the same for the RNS kernels (point op, column, hybrid bucket column,
+   combine) against their plain versions, bit for bit, on the four curves:
+   the hybrid bucket column on `bucket_stream`'s edge lanes, the combine on
+   Horner's shape (one lane, 19 steps of 13 doublings) and the weighted
+   reductions' (40 lanes, one step of 12 or 6 doublings, either operand
+   order) with edge chains (`combine_inputs`: acc = W_w, a sum at infinity,
+   chains and addends at infinity); and the RNS kernels' table-free zero
+   test against the 2^13-row zero-class table on the values k·p and
+   k·p ± 1, k < 8192;
 6. MSMs on the card: BN254 G1 over 65536 points (i+1)·G (window 13, 128
    column steps: the fold path) and over 4096 points (32 lanes: no fold
    path, where the point-op kernel adds; its launches are counted there) on
@@ -61,16 +66,19 @@ phase catches its own failure:
 8. one proof on the limb backend, verified, its launches read around it;
 9. the main path of the RNS slice: the same prover on "rns_hybrid" (its
    limb points as they are), two proofs verified, launches read around
-   them; every RNS-kernel call of the first proof recorded, held bit for bit
-   against its plain version on the recorded inputs and timed beside its
-   bound; the column kernel timed at the prover's G1 shape on the same
-   points converted to RNS, and held against the hybrid kernel there;
+   them (exactly 8 hybrid bucket columns and 24 combines, no column stream,
+   no single-lane doubling, no mixed-add point op); every RNS-kernel call of
+   the first proof recorded, held bit for bit against its plain version on
+   the recorded inputs and timed beside its bound; the column kernel timed
+   at the prover's G1 shape on the same points converted to RNS, its run
+   ends held against the hybrid bucket column's buckets there; the
+   single-lane doubling the combine replaced timed as a yardstick;
 10. the port's entry point: `torch_entry.dryrun()` ("rns_fused", the
-   Poseidon-preimage circuit) proves and verifies, launches read around it;
-   every RNS-kernel call of that proof (point ops and columns, G1 and G2)
-   recorded, held bit for bit against its plain version on the recorded
-   inputs and timed; its largest G1 column call is the column kernel's
-   reported shape;
+   Poseidon-preimage circuit) proves and verifies, launches read around it
+   (no single-lane doubling); every RNS-kernel call of that proof (point
+   ops, columns and combines, G1 and G2) recorded, held bit for bit against
+   its plain version on the recorded inputs and timed; its largest G1 column
+   call is the column kernel's reported shape;
 11. one JSON line describing each ported kernel, then the card's
    `nvidia-smi` line, then the last line {"ok": true, "device": {...}}.
 """
@@ -113,7 +121,10 @@ RNS_SOURCE = "manta_tpu_torch/csrc/rns_kernels.cu"
 RNS_REPLACES = {
     "point": "manta_tpu/ops/pallas/rns_kernels.py:739",
     "columns": "manta_tpu/ops/pallas/rns_kernels.py:511",
-    "hybrid": "manta_tpu/ops/pallas/rns_kernels.py:599",
+    "buckets": "manta_tpu/ops/pallas/rns_kernels.py:599",
+    # Horner's rule and the weighted reductions' doubling runs, which ran as
+    # `_rns_point_op` launches
+    "combine": "manta_tpu/ops/pallas/rns_kernels.py:739",
 }
 
 
@@ -304,7 +315,8 @@ def build_kernels() -> dict:
     log(f"  built {len(paths)} libraries in {seconds:.3f} s: "
         + ", ".join(os.path.relpath(p, ROOT) for p in paths))
     report = {"field": {}, "point": {}, "buckets": {}, "fold": {}, "combine": {}, "merge": {},
-              "rns_point": {}, "rns_columns": {}, "rns_hybrid": {}, "seconds": seconds}
+              "rns_point": {}, "rns_columns": {}, "rns_buckets": {}, "rns_combine": {},
+              "seconds": seconds}
     texts = {what: text for lib in libs for what, text in B.reports(lib).items()}
     if len(texts) != sum(len(lib.units) for lib in libs):
         raise AssertionError(f"compiler reports missing: have {sorted(texts)}")
@@ -544,7 +556,7 @@ def check_rns_kernels() -> dict:
     from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
     rng = np.random.default_rng(SEED + 2)
-    max_err = {"point": 0, "columns": 0, "hybrid": 0}
+    max_err = {"point": 0, "columns": 0, "buckets": 0, "combine": 0}
 
     def hold(kind, what, got, want):
         torch.cuda.synchronize()
@@ -575,14 +587,23 @@ def check_rns_kernels() -> dict:
         def stream(c):  # lane j owns points [j*K, (j+1)*K)
             return c.reshape(*c.shape[:-1], R_, K).movedim(-1, 0).contiguous()
 
-        for kind, backend, fn in (("columns", "rns_fused", RK.rns_accumulate_columns),
-                                  ("hybrid", "rns_hybrid", RK.hybrid_accumulate_columns)):
-            enc = C.curve_ops_for(curve, backend).encode_points(flat, "cuda")
-            px, py = stream(enc.x), stream(enc.y)
-            hold(kind, f"{name} RNS {kind}", fn(curve, px, py, qinf, head),
-                 RK.PLAIN[kind](curve, px, py, qinf, head))
-        log(f"  {name}: RNS point add / madd / double over 1000 lanes, column and hybrid "
-            f"column at K={K}, R={R_}: bit-equal to the plain versions")
+        enc = cops.encode_points(flat, "cuda")
+        px, py = stream(enc.x), stream(enc.y)
+        hold("columns", f"{name} RNS columns", RK.rns_accumulate_columns(curve, px, py, qinf, head),
+             RK.plain_rns_accumulate_columns(curve, px, py, qinf, head))
+        # the hybrid bucket column on the MSM's layout, limb points in
+        args = bucket_stream(curve, C.curve_ops_for(curve, "limb"), rng, K, 4, R_ // 4, 513)
+        got_b, got_a = RK.hybrid_accumulate_buckets(curve, *args)
+        want_b, want_a = RK.plain_hybrid_accumulate_buckets(curve, *args)
+        hold("buckets", f"{name} RNS hybrid bucket column", [*got_b, *got_a], [*want_b, *want_a])
+        for n, steps, doublings, first in ((8, 19, 13, True), (40, 1, 12, False), (40, 1, 6, True)):
+            init, addends = combine_inputs(curve, cops, rng, n, steps, doublings, first)
+            hold("combine", f"{name} RNS combine (n={n}, {steps} steps of {doublings} doublings)",
+                 RK.rns_double_add(curve, init, addends, doublings, first),
+                 RK.plain_rns_double_add(curve, init, addends, doublings, first))
+        log(f"  {name}: RNS point add / madd / double over 1000 lanes, column at K={K}, R={R_}, "
+            f"hybrid bucket column at K={K}, R={R_} (edge lanes), combine on Horner's and the "
+            f"reductions' shapes (edge chains): bit-equal to the plain versions")
         if not curve.is_ext:
             spec = R.default_spec(curve.field)
             p = curve.field.modulus
@@ -598,6 +619,46 @@ def check_rns_kernels() -> dict:
             log(f"  {name}: table-free zero test = the 2^13-row table on {len(vals)} values "
                 f"k·p, k·p ± 1 ({int(got.sum())} zero)")
     return max_err
+
+
+def combine_inputs(curve, cops, rng, n, steps, doublings, chain_first, device="cuda"):
+    """Arguments of `rns_double_add`: n chains of `steps` addends, Jacobian
+    (Z != 1) and a fifth at infinity, with edge chains: lane 0's second
+    addend equals its chain's value when it is added (the addition's
+    doubling branch: acc = W_w), lane 1's first addend is the negation of it
+    (the sum at infinity), lane 2 starts at infinity and lane 3's addends
+    are all at infinity."""
+    from manta_tpu_torch.ops.curve import JacobianPoint
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
+
+    def pts(k):
+        return RK.plain_rns_point_op(curve, "double", cops.encode_points(
+            host_points(curve, rng, k, 0.2), device))
+
+    init = pts(n)
+    addends = JacobianPoint(*(torch.stack(c) for c in zip(*(pts(n) for _ in range(steps)))))
+    for c, i, a in zip(addends, RK._infinity(curve, 1, device), init):
+        c[..., 3] = i[..., 0]
+        a[..., 2] = i[..., 0]
+
+    def chain_value(lane, upto):  # lane's acc, doubled, as addend `upto` meets it
+        acc = RK.plain_rns_double_add(
+            curve, JacobianPoint(*(c[..., lane : lane + 1] for c in init)),
+            JacobianPoint(*(c[:upto, ..., lane : lane + 1] for c in addends)), doublings,
+            chain_first)
+        for _ in range(doublings):
+            acc = RK.plain_rns_point_op(curve, "double", acc)
+        return acc
+
+    if steps > 1:
+        for c, v in zip(addends, chain_value(0, 1)):
+            c[1, ..., 0:1] = v
+    v = chain_value(1, 0)
+    # −y + 2^10·p: a doubling's y is below 2^9.2·p (`RnsCurveOps.double`)
+    neg_y = RK._plain_curve(curve).ops.sub_k(torch.zeros_like(v.y), v.y, 10)
+    for c, w in zip(addends, (v.x, neg_y, v.z)):
+        c[0, ..., 1:2] = w
+    return init, addends
 
 
 # ---------------------------------------------------------------------------
@@ -747,7 +808,8 @@ class Recorder:
         from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
         self.mod = RK if rns else PK
-        self.names = ("_point_op", "_columns") if rns else (
+        self.names = ("_point_op", "rns_accumulate_columns", "hybrid_accumulate_buckets",
+                      "rns_double_add") if rns else (
             "_point_op", "accumulate_buckets", "fold_columns", "combine_windows", "merge_buckets")
         self.calls, self.saved = {}, {}
 
@@ -767,8 +829,12 @@ class Recorder:
         def call(curve, *args):
             if name == "_point_op":
                 key = (args[0], curve.name, tuple(args[1].x.shape))
-            elif name == "_columns":  # (kind, px, py, qinf, head)
-                key = (args[0], curve.name, tuple(args[1].shape))
+            elif name in RNS_WRAPPERS:
+                kind = RNS_WRAPPERS[name]
+                if kind == "combine":  # (init, addends, doublings, chain_first)
+                    key = (kind, curve.name, tuple(args[1].x.shape), args[2], bool(args[3]))
+                else:  # (px, py, qinf, head[, slot, num_slots])
+                    key = (kind, curve.name, tuple(args[0].shape))
             else:
                 kind = {"accumulate_buckets": "buckets", "fold_columns": "fold",
                         "combine_windows": "combine", "merge_buckets": "merge"}[name]
@@ -1064,25 +1130,46 @@ def rns_bound_ms(kind, curve, args):
         which, size = args[0], args[1].x.numel()
         words = size * (3 if which == "double" else 6) + 3 * size
         ops = RNS_PRODUCTS[which][g] * (size // (spec.kt * comps)) * per
-    else:  # args: (kind, px, py, qinf, head)
-        _, px, _, qinf, head = args
+    elif kind == "combine":  # args: (init, addends, doublings, chain_first)
+        init, addends, doublings, _ = args
+        lanes = init.x.numel() // (spec.kt * comps)
+        steps = addends.x.shape[0]
+        # init and addends read, the result written
+        words = 3 * init.x.numel() + 3 * addends.x.numel() + 3 * init.x.numel()
+        ops = lanes * steps * (doublings * RNS_PRODUCTS["double"][g]
+                               + RNS_PRODUCTS["add"][g]) * per
+    elif kind == "columns":  # args: (px, py, qinf, head)
+        px, _, qinf, head = args
         steps, lanes = head.shape
         words = 2 * px.numel() + 2 * head.numel() + 3 * steps * comps * spec.kt * lanes
         ops = RNS_PRODUCTS["madd"][g] * int((~head.bool()).sum()) * per
-        if kind == "hybrid":  # limb sums and one conversion product per coordinate component
-            L = curve.field.num_limbs
-            ops += steps * lanes * 2 * comps * (2 * L * spec.kt + per)
+    else:  # buckets: (px, py, qinf, head, slot, num_slots)
+        px, _, qinf, head, slot, _ = args
+        steps, lanes = head.shape
+        ends = int((slot >= 0).sum())
+        # the limb points and three masks read; the run ends and the last step written
+        words = 2 * px.numel() + 3 * head.numel() + 3 * comps * spec.kt * (ends + lanes)
+        ops = RNS_PRODUCTS["madd"][g] * int((~head.bool()).sum()) * per
+        # limb sums and one conversion product per coordinate component
+        L = curve.field.num_limbs
+        ops += steps * lanes * 2 * comps * (2 * L * spec.kt + per)
     t_bytes = words * 4 / HBM_BYTES_PER_S
     t_ops = ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+# the RNS kernel wrappers the recorder wraps, by kind
+RNS_WRAPPERS = {"rns_accumulate_columns": "columns", "hybrid_accumulate_buckets": "buckets",
+                "rns_double_add": "combine"}
+
 # the shape of each RNS kernel that its `kernels` entry reports from the
-# rns_hybrid proof: the G1 bucket merge of MSM A and its hybrid column (the
-# column kernel's is the entry point's largest G1 column, phase 10)
+# rns_hybrid proof: the G1 bucket merge of MSM A, its hybrid bucket column and
+# its Horner chain (19 windows after the first, 13 doublings each; the column
+# kernel's is the entry point's largest G1 column, phase 10)
 RNS_MAIN_SHAPES = {
     "point": ("add", "bn254_g1", (51, 20, 4097)),
-    "hybrid": ("hybrid", "bn254_g1", (128, 16, 10240)),
+    "buckets": ("buckets", "bn254_g1", (128, 16, 10240)),
+    "combine": ("combine", "bn254_g1", (19, 51, 1), 13, True),
 }
 
 
@@ -1102,71 +1189,104 @@ def time_recorded_rns(recorder, max_err, main_shapes, path) -> dict:
     the `kernels` line reports."""
     from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
-    rows = {"point": [], "columns": [], "hybrid": []}
-    for (which, curve_name, shape), (fn, curve, args) in sorted(
-        recorder.calls.items(), key=lambda kv: kv[0]
-    ):
+    rows = {"point": [], "columns": [], "buckets": [], "combine": []}
+    for key, (fn, curve, args) in sorted(recorder.calls.items(), key=lambda kv: kv[0]):
+        which, curve_name, shape = key[:3]
         kind = "point" if which in RNS_PRODUCTS else which
         got = _coords(fn(curve, *args))
         t0 = time.perf_counter()
         if kind == "point":
             want = RK.plain_rns_point_op(curve, *args)
         else:
-            want = RK.PLAIN[kind](curve, *args[1:])
+            want = RK.PLAIN[kind](curve, *args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = _max_err(got, _coords(want))
         row = {"op": which, "curve": curve_name, "shape": list(shape), "path": path,
                "max_abs_err": err, "plain_ms": plain_ms}
+        if kind == "combine":
+            row["doublings"], row["chain_first"] = key[3:]
         max_err[kind] = max(max_err[kind], err)
         if err:
             raise AssertionError(f"RNS {which} {curve_name} {tuple(shape)} ({path}): kernel != "
                                  f"plain version: max |diff| {err}")
-        if main_shapes.get(kind) == (which, curve_name, shape):
+        if main_shapes.get(kind) == key:
             row["main"] = True
         _time_row(lambda: fn(curve, *args), row, kind, curve, args)
         rows[kind].append(row)
         log(f"  RNS {which} {curve_name} {tuple(shape)}: bit-equal to the plain version; "
             f"{row['ms']:.6f} ms on the device, {row['call_ms']:.6f} ms a call, bound "
             f"{row['bound_ms']:.6f} ms ({row['bound_by']}), plain {plain_ms:.3f} ms")
-    for kind, (which, curve_name, shape) in main_shapes.items():
+    for kind, key in main_shapes.items():
         if not any(r.get("main") for r in rows[kind]):
-            raise AssertionError(f"{path} made no RNS {which} call on {curve_name} at {shape}")
+            raise AssertionError(f"{path} made no RNS {key[0]} call on {key[1]} at {key[2:]}")
     return rows
 
 
 def columns_on_hybrid_points(recorder, max_err) -> dict:
-    """The column kernel at the hybrid column's reported shape, on the same
-    points converted to RNS: held against the hybrid kernel's output and its
-    own plain version, and timed."""
+    """The column kernel at the hybrid bucket column's reported shape, on the
+    same points converted to RNS: its stream's run ends held against the
+    hybrid bucket column's buckets and last step, the stream against its own
+    plain version; timed."""
     from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
-    fn, curve, args = recorder.calls[RNS_MAIN_SHAPES["hybrid"]]
-    kind, px, py, qinf, head = args
+    fn, curve, args = recorder.calls[RNS_MAIN_SHAPES["buckets"]]
+    px, py, qinf, head, slot, num_slots = args
     ops = RK._plain_curve(curve).ops
 
     def to_rns(stream):  # (K, L, R) limbs -> (K, Kt, R) residues
         return ops.from_limbs(stream.movedim(1, 0)).movedim(0, 1).contiguous()
 
-    cargs = ("columns", to_rns(px), to_rns(py), qinf, head)
-    got = _coords(RK.rns_accumulate_columns(curve, *cargs[1:]))
+    cargs = (to_rns(px), to_rns(py), qinf, head)
+    stream = RK.rns_accumulate_columns(curve, *cargs)
+    got = _coords(stream)
     hybrid = _coords(fn(curve, *args))
     t0 = time.perf_counter()
-    want = _coords(RK.plain_rns_accumulate_columns(curve, *cargs[1:]))
+    want = _coords(RK.plain_rns_accumulate_columns(curve, *cargs))
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(_max_err(got, want), _max_err(got, hybrid))
+    picked = RK.pick_run_ends(curve, stream, slot, num_slots)
+    err = max(_max_err(got, want), _max_err(_coords(picked), hybrid))
     max_err["columns"] = max(max_err["columns"], err)
     if err:
-        raise AssertionError(f"RNS column kernel at {tuple(cargs[1].shape)}: != plain version "
-                             f"or hybrid kernel: max |diff| {err}")
-    row = {"op": "columns", "curve": curve.name, "shape": list(cargs[1].shape),
+        raise AssertionError(f"RNS column kernel at {tuple(cargs[0].shape)}: != plain version "
+                             f"or hybrid bucket column: max |diff| {err}")
+    row = {"op": "columns", "curve": curve.name, "shape": list(cargs[0].shape),
            "path": "the hybrid column's points in RNS", "max_abs_err": err, "plain_ms": plain_ms}
-    _time_row(lambda: RK.rns_accumulate_columns(curve, *cargs[1:]), row, "columns", curve, cargs)
-    log(f"  RNS columns {curve.name} {tuple(cargs[1].shape)} (the hybrid column's points in "
-        f"RNS): bit-equal to the plain version and to the hybrid kernel; {row['ms']:.6f} ms on "
-        f"the device, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), plain {plain_ms:.3f} ms")
+    _time_row(lambda: RK.rns_accumulate_columns(curve, *cargs), row, "columns", curve, cargs)
+    log(f"  RNS columns {curve.name} {tuple(cargs[0].shape)} (the hybrid column's points in "
+        f"RNS): bit-equal to the plain version, its run ends to the hybrid bucket column; "
+        f"{row['ms']:.6f} ms on the device, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
+        f"plain {plain_ms:.3f} ms")
     return row
+
+
+def rns_horner_doublings(recorder, max_err) -> list:
+    """The single-lane RNS doubling that the combine replaced (247 of them
+    an MSM before it), on the first addend of each recorded Horner chain
+    (one lane): held against its plain version and timed, as a yardstick
+    for the combine."""
+    from manta_tpu_torch.ops.curve import JacobianPoint
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
+
+    rows = []
+    for key, (_, curve, args) in sorted(recorder.calls.items(), key=lambda kv: kv[0]):
+        if key[0] != "combine" or key[2][-1] != 1:  # Horner: one lane
+            continue
+        p = JacobianPoint(*(c[0].contiguous() for c in args[1]))
+        err = _max_err(RK.rns_double(curve, p), RK.plain_rns_point_op(curve, "double", p))
+        max_err["point"] = max(max_err["point"], err)
+        if err:
+            raise AssertionError(f"RNS double {curve.name} at the Horner shape: kernel != plain "
+                                 f"version: max |diff| {err}")
+        row = {"op": "double", "curve": curve.name, "shape": list(p.x.shape),
+               "path": "the Horner doubling the combine replaced", "max_abs_err": err}
+        _time_row(lambda: RK.rns_double(curve, p), row, "point", curve, ("double", p))
+        rows.append(row)
+        log(f"  RNS double {curve.name} {tuple(p.x.shape)} (the Horner doubling the combine "
+            f"replaced): bit-equal to the plain version; {row['ms']:.6f} ms on the device, "
+            f"{row['call_ms']:.6f} ms a call, bound {row['bound_ms']:.6f} ms")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1204,7 +1324,7 @@ def main() -> int:
     log("== phase 4: point, bucket-column, fold, combine and merge kernels vs plain versions")
     point_err = check_point_kernels()
 
-    log("== phase 5: RNS point, column and hybrid column kernels vs plain versions")
+    log("== phase 5: RNS point, column, hybrid bucket column and combine kernels vs plain versions")
     rns_err = check_rns_kernels()
 
     log("== phase 6: MSMs")
@@ -1235,20 +1355,29 @@ def main() -> int:
 
     log("== phase 9: production PrivateTransfer proofs on rns_hybrid (this slice's main path)")
     rns_counts, recorder = prove_production("rns_hybrid", record=True)
-    for op in ("add", "double", "hybrid"):
-        if rns_counts["rns"][op] <= 0:
-            raise AssertionError(f"the rns_hybrid path launched no RNS {op} kernel")
+    # two proofs of four MSMs: 1 hybrid bucket column and 3 combines (Horner,
+    # the two weighted reductions' doubling runs) an MSM; no column stream and
+    # no single-lane doubling; the point op adds the trailing partials, the
+    # buckets and their reductions
+    want = {"madd": 0, "double": 0, "columns": 0, "buckets": 8, "combine": 24, "is_zero": 0}
+    got = {op: rns_counts["rns"][op] for op in want}
+    if got != want or rns_counts["rns"]["add"] <= 0:
+        raise AssertionError(f"unexpected RNS-kernel launches over two rns_hybrid proofs: "
+                             f"{rns_counts['rns']}")
     log("  the RNS kernels at the shapes of the first proof: checked, then timed")
     rns_rows = time_recorded_rns(recorder, rns_err, RNS_MAIN_SHAPES,
                                  "production proof (rns_hybrid)")
     rns_rows["columns"].append(columns_on_hybrid_points(recorder, rns_err))
+    rns_rows["point"] += rns_horner_doublings(recorder, rns_err)
     del recorder
 
     log("== phase 10: torch_entry.dryrun() (rns_fused)")
     entry_counts, recorder = entry_dryrun()
-    for op in ("add", "double", "columns"):
+    for op in ("add", "columns", "combine"):
         if entry_counts["rns"][op] <= 0:
             raise AssertionError(f"the entry point launched no RNS {op} kernel")
+    if entry_counts["rns"]["double"] or entry_counts["rns"]["buckets"]:
+        raise AssertionError(f"the entry point's rns_fused proof launched {entry_counts['rns']}")
     log("  the RNS kernels at the shapes of the entry point's proof: checked, then timed")
     g1_columns = max((key for key in recorder.calls if key[:2] == ("columns", "bn254_g1")),
                      key=lambda key: math.prod(key[2]))
@@ -1320,11 +1449,13 @@ def main() -> int:
     rns_launches = {
         "point": {op: rns_counts["rns"][op] for op in ("add", "madd", "double")},
         "columns": entry_counts["rns"]["columns"],
-        "hybrid": rns_counts["rns"]["hybrid"],
+        "buckets": rns_counts["rns"]["buckets"],
+        "combine": rns_counts["rns"]["combine"],
     }
     for kind, name in (("point", "rns_kernels.rns_point_op"),
                        ("columns", "rns_kernels.rns_accumulate_columns"),
-                       ("hybrid", "rns_kernels.hybrid_accumulate_columns")):
+                       ("buckets", "rns_kernels.hybrid_accumulate_buckets"),
+                       ("combine", "rns_kernels.rns_double_add")):
         main_row = next(r for r in rns_rows[kind] if r.get("main"))
         launches = rns_launches[kind]
         kernels.append({
@@ -1332,7 +1463,8 @@ def main() -> int:
             "route": "cuda",
             "source": RNS_SOURCE,
             "replaces": RNS_REPLACES[kind],
-            # B6 and B8 on the rns_hybrid proofs; B7 on the entry point's rns_fused proof
+            # B6, B8 and the combine on the rns_hybrid proofs; B7 on the entry
+            # point's rns_fused proof
             "launches": sum(launches.values()) if kind == "point" else launches,
             "path": "torch_entry.dryrun (rns_fused)" if kind == "columns" else
                     "production proofs (rns_hybrid)",

@@ -1,11 +1,15 @@
-"""RNS curve kernels: point op, bucket column, hybrid column; CUDA and plain.
+"""RNS curve kernels: point op, bucket column, hybrid bucket column, combine;
+CUDA and plain.
 
 Replaces the JAX package's Pallas TPU kernels of
 `manta_tpu/ops/pallas/rns_kernels.py`: `_rns_point_op` (public `rns_add`,
 `rns_madd`, `rns_double`), `_rns_column_call` (`rns_accumulate_columns`) and
-`_hybrid_column_call` (`hybrid_accumulate_columns`), with the backend objects
+`_hybrid_column_call` (`hybrid_accumulate_buckets`), with the backend objects
 `RnsFusedCurveOps` / `RnsHybridCurveOps` and `rns_fused_curve_ops_for` /
-`rns_hybrid_curve_ops_for`. The kernel source is `manta_tpu_torch/csrc/
+`rns_hybrid_curve_ops_for`. The combine kernel (`rns_double_add`) runs the
+chains of doublings and additions that the JAX package's MSM issues as
+`_rns_point_op` calls a lane at a time (Horner's rule, the weighted
+reductions' doubling runs). The kernel source is `manta_tpu_torch/csrc/
 rns_kernels.cu` (arithmetic in `rns_ops.cuh`); its header gives the bound on
 the H100 and what the design does about it.
 
@@ -13,6 +17,9 @@ Layout at the boundary, as in the JAX package: coordinates packed
 channels-major int32 residues, `(Kt, ...)` for G1 and `(2, Kt, ...)` for G2
 (`ops/rns.py`); the column streams `(K, *E, R)` with masks `(K, R)`; the
 hybrid column's input points as 16-bit Montgomery limbs `(K, *E(L), R)`.
+The JAX hybrid kernel writes the accumulator after every step, from which
+the MSM picks the run ends; `hybrid_accumulate_buckets` writes only the run
+ends, into their buckets, and the last step (the same buckets, bit for bit).
 Each public function dispatches on the tensors' device:
 
 - CUDA: one launch of the curve's kernel on the current stream, counted in
@@ -46,6 +53,7 @@ import torch
 
 from manta_tpu_torch.ops import curve as C
 from manta_tpu_torch.ops import field_ops as F
+from manta_tpu_torch.ops import msm as M
 from manta_tpu_torch.ops import rns as R
 from manta_tpu_torch.ops.curve import JacobianPoint
 from manta_tpu_torch.ops.kernels import build as B
@@ -56,13 +64,15 @@ from manta_tpu_torch.utils import hostmath
 N_ZERO_CLASSES = 1 << 13
 
 #: launches of the CUDA kernels, counted by the wrappers: the point-op kernel
-#: by formula, the column and the hybrid column kernel, the zero-test launcher
-LAUNCHES = {"add": 0, "madd": 0, "double": 0, "columns": 0, "hybrid": 0, "is_zero": 0}
+#: by formula, the column kernel, the hybrid bucket column, the combine and
+#: the zero-test launcher
+LAUNCHES = {"add": 0, "madd": 0, "double": 0, "columns": 0, "buckets": 0, "combine": 0,
+            "is_zero": 0}
 
 #: curve name -> the MANTA_CURVE id of `rns_kernels.cu`
 KERNEL_CURVES = {"bn254_g1": 0, "bn254_g2": 1, "bls12_381_g1": 2, "bls12_381_g2": 3}
 #: the MANTA_KERNEL ids of `rns_kernels.cu`: one object each
-KERNELS = ("add", "madd", "double", "columns", "hybrid")
+KERNELS = ("add", "madd", "double", "columns", "buckets", "combine")
 
 SOURCE = B.CSRC / "rns_kernels.cu"
 
@@ -91,10 +101,11 @@ def _lib(curve_name: str) -> ctypes.CDLL:
     for which in ("add", "madd", "double"):
         getattr(lib, f"manta_rns_point_{which}").argtypes = [*[ptr] * 10, i64, i64, ptr]
     lib.manta_rns_is_zero.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
-    for name in ("manta_rns_accumulate_columns", "manta_rns_hybrid_columns"):
-        getattr(lib, name).argtypes = [*[ptr] * 8, i32, i64, i64, ptr]
+    lib.manta_rns_accumulate_columns.argtypes = [*[ptr] * 8, i32, i64, i64, ptr]
+    lib.manta_rns_hybrid_buckets.argtypes = [*[ptr] * 12, i32, i64, i64, i64, ptr]
+    lib.manta_rns_double_add.argtypes = [*[ptr] * 10, i64, i32, i32, i32, i64, ptr]
     for name in ("point_add", "point_madd", "point_double", "is_zero", "accumulate_columns",
-                 "hybrid_columns"):
+                 "hybrid_buckets", "double_add"):
         getattr(lib, f"manta_rns_{name}").restype = ctypes.c_int
     return lib
 
@@ -354,6 +365,42 @@ def plain_hybrid_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
     return PK._stream_from_tensors(outs)
 
 
+def _infinity(curve, lanes: int, device) -> JacobianPoint:
+    """The RNS backends' infinity (0, encoded 1, 0), (*E(Kt), lanes)
+    coordinates of their own (`infinity_like`)."""
+    spec = R.default_spec(curve.field)
+    z = torch.zeros((*_edims(curve, spec.kt), lanes), dtype=torch.int32, device=device)
+    inf = rns_fused_curve_ops_for(curve).infinity_like(JacobianPoint(z, z, z))
+    return JacobianPoint(*(c.contiguous() for c in inf))
+
+
+def plain_hybrid_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
+    """`plain_hybrid_accumulate_columns`, then its value at each step and
+    lane with slot >= 0 written to bucket slot of an infinity array
+    (*E(Kt), num_slots); returns (the buckets, the last step's accumulator
+    (*E(Kt), R))."""
+    return pick_run_ends(curve, plain_hybrid_accumulate_columns(curve, px, py, qinf, head), slot,
+                         num_slots)
+
+
+def pick_run_ends(curve, stream: JacobianPoint, slot, num_slots: int):
+    """A column's stream (K, *E(Kt), R) -> (buckets (*E(Kt), num_slots):
+    infinity where no slot names them, else the stream's value at the step
+    and lane whose slot it is; the last step (*E(Kt), R))."""
+    s = slot.reshape(-1).long()
+    live = s >= 0
+    buckets = _infinity(curve, num_slots, stream.x.device)
+    for b, c in zip(buckets, stream):
+        b[..., s[live]] = c.movedim(0, -2).reshape(*c.shape[1:-1], -1)[..., live]
+    return buckets, JacobianPoint(*(c[-1].clone() for c in stream))
+
+
+def plain_rns_double_add(curve, init, addends, doublings: int, chain_first: bool):
+    """The combine's work: the MSM's Python lines it replaces
+    (`msm.double_add_loop`) over the plain RNS formulas."""
+    return M.double_add_loop(_plain_curve(curve), init, addends, doublings, chain_first)
+
+
 def plain_rns_is_zero(curve, a) -> torch.Tensor:
     return table_is_zero(R.default_spec(curve.field), a)
 
@@ -363,7 +410,8 @@ PLAIN = {
     "madd": lambda curve, p, q: plain_rns_point_op(curve, "madd", p, q),
     "double": lambda curve, p: plain_rns_point_op(curve, "double", p),
     "columns": plain_rns_accumulate_columns,
-    "hybrid": plain_hybrid_accumulate_columns,
+    "buckets": plain_hybrid_accumulate_buckets,
+    "combine": plain_rns_double_add,
     "is_zero": plain_rns_is_zero,
 }
 
@@ -482,41 +530,92 @@ def _check_stream(curve, coords, masks, in_rows: int) -> tuple:
     return K, shape[-1]
 
 
-def _columns(curve, kind: str, px, py, qinf, head) -> JacobianPoint:
-    spec = R.default_spec(curve.field)
-    in_rows = curve.field.num_limbs if kind == "hybrid" else spec.kt
-    K, lanes = _check_stream(curve, (px, py), (qinf, head), in_rows)
-    if not _on_cuda(curve, (px, py)):
-        return PLAIN[kind](curve, px, py, qinf, head)
-    if qinf.device != px.device or head.device != px.device:
-        raise ValueError("masks and stream on different devices")
-    px, py = px.contiguous(), py.contiguous()
-    masks = [m.to(torch.int32).contiguous() for m in (qinf, head)]
-    shape = (K, *_edims(curve, spec.kt), lanes)
-    out = JacobianPoint(*(torch.empty(shape, dtype=torch.int32, device=px.device)
-                          for _ in range(3)))
-    if K and lanes:
-        table, words = _table(curve, px.device)
-        name = "manta_rns_accumulate_columns" if kind == "columns" else "manta_rns_hybrid_columns"
-        err = getattr(_lib(curve.name), name)(
-            table, px.data_ptr(), py.data_ptr(), *(m.data_ptr() for m in masks),
-            *(t.data_ptr() for t in out), K, lanes, words, PK._stream())
-        PK._check_launch(err, f"RNS {kind}")
-        LAUNCHES[kind] += 1
-    return out
-
-
 def rns_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
     """The K-step bucket accumulation over the sorted affine RNS stream
     `px, py` (K, *E, R) with masks `qinf, head` (K, R): the accumulator
     after every step, (K, *E, R) each."""
-    return _columns(curve, "columns", px, py, qinf, head)
+    spec = R.default_spec(curve.field)
+    K, lanes = _check_stream(curve, (px, py), (qinf, head), spec.kt)
+    if not _on_cuda(curve, (px, py)):
+        return plain_rns_accumulate_columns(curve, px, py, qinf, head)
+    if qinf.device != px.device or head.device != px.device:
+        raise ValueError("masks and stream on different devices")
+    px, py = px.contiguous(), py.contiguous()
+    masks = [m.to(torch.int32).contiguous() for m in (qinf, head)]
+    out = JacobianPoint(*(torch.empty_like(px) for _ in range(3)))
+    if K and lanes:
+        table, words = _table(curve, px.device)
+        err = _lib(curve.name).manta_rns_accumulate_columns(
+            table, px.data_ptr(), py.data_ptr(), *(m.data_ptr() for m in masks),
+            *(t.data_ptr() for t in out), K, lanes, words, PK._stream())
+        PK._check_launch(err, "RNS columns")
+        LAUNCHES["columns"] += 1
+    return out
 
 
-def hybrid_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
-    """The same over 16-bit-limb points `px, py` (K, *E(L), R): RNS
-    accumulators (K, *E(Kt), R)."""
-    return _columns(curve, "hybrid", px, py, qinf, head)
+def hybrid_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
+    """The K-step bucket accumulation over 16-bit-limb points `px, py`
+    (K, *E(L), R) with masks `qinf, head` and `slot` (K, R) int, each step's
+    point converted to RNS: the accumulator at each step and lane with slot
+    >= 0, written to bucket slot of a (*E(Kt), num_slots) array that is
+    infinity elsewhere (the slots >= 0 unique), and the last step's
+    accumulator (*E(Kt), R). Returns (buckets, acc_last). See
+    `plain_hybrid_accumulate_buckets`."""
+    spec = R.default_spec(curve.field)
+    K, lanes = _check_stream(curve, (px, py), (qinf, head, slot), curve.field.num_limbs)
+    if not _on_cuda(curve, (px, py)):
+        return plain_hybrid_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots)
+    if any(m.device != px.device for m in (qinf, head, slot)):
+        raise ValueError("masks and stream on different devices")
+    px, py = px.contiguous(), py.contiguous()
+    masks = [m.to(torch.int32).contiguous() for m in (qinf, head, slot)]
+    buckets = _infinity(curve, num_slots, px.device)
+    acc_last = JacobianPoint(*(px.new_empty((*_edims(curve, spec.kt), lanes)) for _ in range(3)))
+    if K and lanes:
+        table, words = _table(curve, px.device)
+        err = _lib(curve.name).manta_rns_hybrid_buckets(
+            table, px.data_ptr(), py.data_ptr(), *(m.data_ptr() for m in masks),
+            *(t.data_ptr() for t in buckets), *(t.data_ptr() for t in acc_last), K, lanes,
+            num_slots, words, PK._stream())
+        PK._check_launch(err, "RNS hybrid bucket column")
+        LAUNCHES["buckets"] += 1
+    return buckets, acc_last
+
+
+def rns_double_add(curve, init: JacobianPoint, addends: JacobianPoint, doublings: int,
+                   chain_first: bool = True) -> JacobianPoint:
+    """Per lane of init (*E, ...): acc = init; for each of the S addends
+    (S, *E, ...): `doublings` doublings of acc, then acc = add(acc, w)
+    (chain_first) or add(w, acc); one launch for every chain. Returns acc,
+    shaped as init. See `plain_rns_double_add`."""
+    spec = R.default_spec(curve.field)
+    edims = _edims(curve, spec.kt)
+    shape = init.x.shape
+    steps = addends.x.shape[0]
+    if (tuple(shape[: len(edims)]) != edims or any(c.shape != shape for c in init)
+            or any(tuple(c.shape) != (steps, *shape) for c in addends) or doublings < 0):
+        raise ValueError(f"{curve.name}: expected RNS coordinates ({', '.join(map(str, edims))}, "
+                         f"...) and addends (S, same), doublings >= 0, got "
+                         f"{[tuple(c.shape) for c in (*init, *addends)]}, {doublings}")
+    n = 1
+    for d in shape[len(edims):]:
+        n *= d
+    ins = [c.reshape(*edims, n).contiguous() for c in init]
+    ws = [c.reshape(steps, *edims, n).contiguous() for c in addends]
+    if not _on_cuda(curve, (*ins, *ws)):
+        out = plain_rns_double_add(curve, JacobianPoint(*ins), JacobianPoint(*ws), doublings,
+                                   chain_first)
+        return JacobianPoint(*(c.reshape(shape) for c in out))
+    out = [torch.empty_like(ins[0]) for _ in range(3)]
+    if n:
+        table, words = _table(curve, ins[0].device)
+        err = _lib(curve.name).manta_rns_double_add(
+            table, *(t.data_ptr() for t in ins), *(t.data_ptr() for t in ws),
+            *(t.data_ptr() for t in out), n, steps, doublings, int(chain_first), words,
+            PK._stream())
+        PK._check_launch(err, "RNS combine")
+        LAUNCHES["combine"] += 1
+    return JacobianPoint(*(c.reshape(shape) for c in out))
 
 
 # ---------------------------------------------------------------------------
@@ -525,13 +624,14 @@ def hybrid_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
 
 
 @dataclasses.dataclass(frozen=True)
-class RnsFusedCurveOps(C.CurveOps):
+class _RnsKernelCurveOps(C.CurveOps):
     """CurveOps whose group law runs as RNS kernels.
 
     Coordinates are packed int32 residues; `ops` is the renormalizing
     `RnsCoordOps` / `RnsFq2CoordOps` (encode, decode, select for the MSM's
-    glue); add / madd / double launch one kernel each and the MSM finds
-    `run_columns` and runs its bucket loop as one launch. There is no fold
+    glue); add / madd / double launch one kernel each, and the MSM finds
+    `double_add` and runs its chains of doublings and additions (Horner,
+    the weighted reductions) as one combine launch each. There is no fold
     kernel: the MSM reduces the buckets with point additions."""
 
     def add(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
@@ -543,12 +643,22 @@ class RnsFusedCurveOps(C.CurveOps):
     def double(self, p: JacobianPoint) -> JacobianPoint:
         return rns_double(self.curve, p)
 
-    def run_columns(self, px, py, qinf, head) -> JacobianPoint:
-        return rns_accumulate_columns(self.curve, px, py, qinf, head)
+    def double_add(self, init, addends, doublings: int, chain_first: bool = True):
+        return rns_double_add(self.curve, init, addends, doublings, chain_first)
 
     def affine_infinity_mask(self, pt: JacobianPoint):
         """Encoded affine batches: Z residues all 0 (infinity) or the encoded 1."""
         return (pt.z == 0).flatten(0, pt.z.ndim - 2).all(0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RnsFusedCurveOps(_RnsKernelCurveOps):
+    """RNS kernels over RNS point arrays: the MSM finds `run_columns` and
+    runs its bucket loop as one launch of the column kernel, whose stream it
+    picks the run ends from."""
+
+    def run_columns(self, px, py, qinf, head) -> JacobianPoint:
+        return rns_accumulate_columns(self.curve, px, py, qinf, head)
 
 
 @functools.lru_cache(maxsize=None)
@@ -557,13 +667,14 @@ def rns_fused_curve_ops_for(curve: hostmath.WeierstrassCurve) -> RnsFusedCurveOp
 
 
 @dataclasses.dataclass(frozen=True)
-class RnsHybridCurveOps(RnsFusedCurveOps):
+class RnsHybridCurveOps(_RnsKernelCurveOps):
     """RNS group law over limb-resident point arrays.
 
     The affine point arrays (the MSM's input: `encode_points`, padding, the
     signed y negation, the sorted gather) stay 16-bit Montgomery limbs,
-    served by `point_ops`; the column kernel converts each step's point to
-    RNS, and accumulators, buckets and the reduction are RNS. So
+    served by `point_ops`; the hybrid bucket column (`run_bucket_columns`)
+    converts each step's point to RNS and writes the run ends into their
+    buckets, and accumulators, buckets and the reduction are RNS. So
     `encode_points` gives limb batches and `decode_points` takes RNS ones,
     as in the JAX package."""
 
@@ -594,8 +705,8 @@ class RnsHybridCurveOps(RnsFusedCurveOps):
         return JacobianPoint(o.zeros_like(template.x), o.one_like(template.y),
                              o.zeros_like(template.z))
 
-    def run_columns(self, px, py, qinf, head) -> JacobianPoint:
-        return hybrid_accumulate_columns(self.curve, px, py, qinf, head)
+    def run_bucket_columns(self, px, py, qinf, head, slot, num_slots: int):
+        return hybrid_accumulate_buckets(self.curve, px, py, qinf, head, slot, num_slots)
 
 
 @functools.lru_cache(maxsize=None)

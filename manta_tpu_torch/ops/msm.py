@@ -18,8 +18,9 @@ Port of `manta_tpu/ops/msm.py`, limb and fused backends:
    kernel cannot (not a multiple of 128: there, K launches of the fused
    mixed addition add up the same per-lane chains). Completed runs land in
    their bucket: the fused backend's bucket column writes each run end
-   straight into it (`_column_run_ends`, slots from `_run_end_slots`); the
-   RNS backends' column kernels write the accumulator after every step, of
+   straight into it (`_column_run_ends`, slots from `_run_end_slots`), and
+   so does the "rns_hybrid" backend's hybrid bucket column; the "rns_fused"
+   backend's column kernel writes the accumulator after every step, of
    which `_run_ends_compact` locates the run ends (`_column_stream`). Runs
    that span chunks leave trailing partials that a segmented fold adds into
    a second bucket batch.
@@ -38,7 +39,9 @@ Port of `manta_tpu/ops/msm.py`, limb and fused backends:
 4. **Window combine**: Horner over windows (c doublings per window),
    `horner`. On the fold path the window sums (`window_sums`) and Horner's
    rule are one launch of the fused backend's combine kernel
-   (`combine_windows`).
+   (`combine_windows`). On the RNS backends each chain of doublings and an
+   addition (Horner's rule, the weighted reductions' doubling runs) is one
+   launch of their combine kernel (`double_add`, `_double_add`).
 
 On the limb backend every field operation is one launch of the field kernel
 on a CUDA tensor (`ops/kernels/field_kernels.py`); on the fused backend each
@@ -70,10 +73,10 @@ def _map(pt: JacobianPoint, fn) -> JacobianPoint:
 
 
 def _fused(cops: C.CurveOps) -> bool:
-    """Fused backends: the column loop runs as one kernel, the fused
-    backend's bucket column (`run_bucket_columns`,
-    `ops/kernels/point_kernels.py`) or the RNS backends' stream column
-    (`run_columns`, `ops/kernels/rns_kernels.py`)."""
+    """Fused backends: the column loop runs as one kernel, a bucket column
+    that writes run ends only (`run_bucket_columns`: the fused backend,
+    `ops/kernels/point_kernels.py`, and "rns_hybrid") or the "rns_fused"
+    backend's stream column (`run_columns`, `ops/kernels/rns_kernels.py`)."""
     return hasattr(cops, "run_bucket_columns") or hasattr(cops, "run_columns")
 
 
@@ -264,7 +267,7 @@ def _run_end_slots(d_t: torch.Tensor, end: torch.Tensor, num_buckets: int) -> to
 
 
 def _column_run_ends(cops, px, py, qinf, head, d_t, end, num_buckets: int):
-    """The fused backend's bucket column: one launch writes each run end
+    """The bucket column (fused and "rns_hybrid"): one launch writes each run end
     into its bucket and the last step's accumulator; no (K, *E, W·R)
     stream. Returns the (*E, W, num_buckets) buckets (infinity where no run
     ends) and the trailing accumulators (*E, W, R)."""
@@ -276,7 +279,7 @@ def _column_run_ends(cops, px, py, qinf, head, d_t, end, num_buckets: int):
 
 
 def _column_stream(cops, px, py, qinf, head, d_t, end, num_buckets: int):
-    """The RNS backends' column kernel: the accumulator after every step,
+    """The "rns_fused" backend's column kernel: the accumulator after every step,
     (K, *E, W·R); the <= num_buckets run-end values of each window are
     picked out of it and written to their buckets. Same returns as
     `_column_run_ends`."""
@@ -286,8 +289,6 @@ def _column_stream(cops, px, py, qinf, head, d_t, end, num_buckets: int):
         *(a.reshape(*a.shape[:-1], num_windows, lanes) for a in (ox, oy, oz))
     )  # (K, *E, W, R)
 
-    # bucket template from the column OUTPUT shapes: the hybrid backend feeds
-    # the kernel limb points and gets RNS accumulators back
     def tmpl(a):
         return torch.zeros((*a.shape[1:-1], num_buckets), dtype=a.dtype, device=a.device)
 
@@ -319,8 +320,8 @@ def _bucket_sums_fused(
     """Fused bucket accumulation, all windows at once: one column-kernel
     launch over the (K, *E, W·R) sorted affine stream; the <= num_buckets
     run-end values of each window land in their buckets
-    (`_column_run_ends` on the fused backend, `_column_stream` on the RNS
-    backends).
+    (`_column_run_ends` where the backend has a bucket column,
+    `_column_stream` on "rns_fused").
 
     Returns the (*E, W, num_buckets) buckets; with `parts`, instead the
     run-end buckets, the trailing accumulators (*E, W, R) and d_t (K, W, R)
@@ -532,10 +533,36 @@ def window_sums(cops: C.CurveOps, a: JacobianPoint, b: JacobianPoint, doublings:
     return _map(cops.add(d, a3), lambda t: t[..., None])
 
 
+def double_add_loop(cops: C.CurveOps, init: JacobianPoint, addends: JacobianPoint,
+                    doublings: int, chain_first: bool = True) -> JacobianPoint:
+    """acc = init; for each addend w of addends (S, *E, ...) in turn:
+    `doublings` doublings of acc, then acc = add(acc, w) (chain_first) or
+    add(w, acc). One launch per formula on the kernel backends."""
+    acc = init
+    for s in range(addends.x.shape[0]):
+        for _ in range(doublings):
+            acc = cops.double(acc)
+        w = _map(addends, lambda a: a[s])
+        acc = cops.add(acc, w) if chain_first else cops.add(w, acc)
+    return acc
+
+
+def _double_add(cops: C.CurveOps, init, addends, doublings: int, chain_first: bool = True):
+    """`double_add_loop`, as one launch of the backend's combine kernel where
+    it has one (`double_add`: the RNS backends)."""
+    if hasattr(cops, "double_add"):
+        return cops.double_add(init, addends, doublings, chain_first)
+    return double_add_loop(cops, init, addends, doublings, chain_first)
+
+
 def horner(cops: C.CurveOps, wins: JacobianPoint, window_bits: int) -> JacobianPoint:
     """Horner from the most significant window down over wins (*E, W, 1):
     acc = W_last; for w = last-1..0: acc = 2^c·acc + W_w. Returns (*E, 1)."""
     acc = _map(wins, lambda a: a[..., -1, :])
+    if hasattr(cops, "double_add"):
+        # one combine launch over the addends W_{last-1}, ..., W_0: (W-1, *E, 1)
+        rest = _map(wins, lambda a: a[..., :-1, :].flip(-2).movedim(-2, 0))
+        return cops.double_add(acc, rest, window_bits)
     for w in range(wins.x.shape[-2] - 2, -1, -1):
         for _ in range(window_bits):
             acc = cops.double(acc)
@@ -591,9 +618,8 @@ def _weighted_reduce(cops: C.CurveOps, buckets: JacobianPoint, window_bits: int)
     col_sums = _map(_tree_reduce_last(cops, mat_t), lambda a: a[..., 0])  # sum over h
     w_hi = _weighted_linear(cops, row_sums)  # sum_h h*R_h
     w_lo = _weighted_linear(cops, col_sums)  # sum_l l*C_l
-    for _ in range(c2):
-        w_hi = cops.double(w_hi)
-    return cops.add(w_hi, w_lo)
+    # 2^c2·w_hi + w_lo
+    return _double_add(cops, w_hi, _map(w_lo, lambda a: a[None]), c2)
 
 
 def _weighted_reduce_signed(
@@ -606,9 +632,8 @@ def _weighted_reduce_signed(
     main = _map(buckets, lambda a: a[..., : 1 << half_bits])
     top = _map(buckets, lambda a: a[..., 1 << half_bits : (1 << half_bits) + 1])
     acc = _weighted_reduce(cops, main, half_bits)
-    for _ in range(half_bits):
-        top = cops.double(top)
-    return cops.add(acc, top)
+    # acc + 2^(c-1)·top: the doubled point is the addition's second operand
+    return _double_add(cops, top, _map(acc, lambda a: a[None]), half_bits, chain_first=False)
 
 
 @torch.inference_mode()

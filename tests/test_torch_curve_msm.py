@@ -89,9 +89,11 @@ def test_other_backends_raise(backend):
         return
     cops = C.curve_ops_for(TH.BN254_G1, backend)
     assert cops.backend == ("fused" if backend == "fused" else "rns")
-    # the fused backend's column writes run ends only; the RNS ones a stream
-    assert hasattr(cops, "run_bucket_columns") == (backend == "fused")
-    assert hasattr(cops, "run_columns") == (backend != "fused")
+    # the fused and rns_hybrid backends' columns write run ends only; rns_fused's a stream
+    assert hasattr(cops, "run_bucket_columns") == (backend in ("fused", "rns_hybrid"))
+    assert hasattr(cops, "run_columns") == (backend == "rns_fused")
+    # the RNS backends run the MSM's chains of doublings as combine launches
+    assert hasattr(cops, "double_add") == backend.startswith("rns")
     assert hasattr(cops, "point_ops") == (backend == "rns_hybrid")
 
 

@@ -146,10 +146,10 @@ def test_toy_fold_path_runs_bucket_column_and_merge_once(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["fused", "rns_fused", "rns_hybrid"])
 def test_column_stream_path_only_on_rns_backends(backend, monkeypatch):
-    """Dispatch by backend, not a fallback: the fused backend's buckets come
-    from the bucket column (`_column_run_ends`) and never from the column
-    stream (`_column_stream`), which the RNS backends keep; all three give
-    the same buckets."""
+    """Dispatch by backend, not a fallback: the fused and rns_hybrid
+    backends' buckets come from their bucket columns (`_column_run_ends`)
+    and never from the column stream (`_column_stream`), which rns_fused
+    keeps; all three give the same buckets."""
     calls = {"_column_run_ends": 0, "_column_stream": 0}
     for name in calls:
         def counted(*args, _fn=getattr(M, name), _name=name):
@@ -165,7 +165,7 @@ def test_column_stream_path_only_on_rns_backends(backend, monkeypatch):
     pts[5] = None
     cops = C.curve_ops_for(curve, backend)
     got = M._bucket_sums(cops, digits, cops.encode_points(pts, "cpu"), nb, steps)
-    want = {"fused": (1, 0)}.get(backend, (0, 1))
+    want = {"rns_fused": (0, 1)}.get(backend, (1, 0))
     assert (calls["_column_run_ends"], calls["_column_stream"]) == want
     flat = JacobianPoint(*(c.reshape(*c.shape[:-2], -1) for c in got))
     for w in range(num_windows):

@@ -209,6 +209,28 @@ def test_rns_msm_equals_host(backend, name, n, steps):
     _msm_case(name, backend, n, steps)
 
 
+@pytest.mark.parametrize("backend", ["rns_fused", "rns_hybrid"])
+def test_rns_msm_runs_bucket_column_and_combine_not_single_lane_doubles(backend, monkeypatch):
+    """The RNS MSM's kernel calls, read by wrapping the kernel wrappers the
+    backends call: rns_hybrid accumulates through the hybrid bucket column
+    (no column stream), rns_fused through the column stream; both run
+    Horner's rule and the two weighted reductions' doubling runs as three
+    combine calls, and no single-lane doubling."""
+    names = ("rns_double", "rns_double_add", "hybrid_accumulate_buckets",
+             "rns_accumulate_columns")
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def counted(*args, _fn=getattr(RK, name), _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(RK, name, counted)
+    _msm_case("bn254_g1", backend, 256, 2)
+    hybrid = backend == "rns_hybrid"
+    assert calls == {"rns_double": 0, "rns_double_add": 3, "hybrid_accumulate_buckets": int(hybrid),
+                     "rns_accumulate_columns": int(not hybrid)}
+
+
 def test_hybrid_msm_negates_and_pads_limb_points():
     """The hybrid MSM negates y (signed digits) and pads the point arrays in
     the limb form (`point_ops`, `point_infinity_like`), while its buckets are

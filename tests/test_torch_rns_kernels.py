@@ -5,9 +5,12 @@ column kernels and their plain versions; on CPU tensors the public functions
 take the plain versions. They are held here bit for bit, residues compared as
 integers, against the JAX package's Pallas kernels
 (`manta_tpu/ops/pallas/rns_kernels.py`) in interpret mode: `_run_point_op`
-(G1), `rns_accumulate_columns` and `hybrid_accumulate_columns`, on BN254 with
-128 lanes and K = 8 (the JAX `_tables` cannot be built for the TOY field:
-ROADMAP queue C). For G2 the JAX kernel's own formulas and field ops
+(G1), `rns_accumulate_columns` and `hybrid_accumulate_columns` (the
+hybrid bucket column's plain version against the JAX stream and the pick of
+its run ends), on BN254 with 128 lanes and K = 8 (the JAX `_tables` cannot be
+built for the TOY field: ROADMAP queue C). The combine's plain version is
+held against the JAX kernel's formulas run as the JAX package's MSM runs
+them, a double or add at a time. For G2 the JAX kernel's own formulas and field ops
 (`_RnsKernelCurve` over `_KernelRnsFq2Ops`) run eagerly instead of through
 the interpreter, whose trace of a G2 formula takes 7–23 s. The kernels'
 table-free zero test is held against the zero-class table and the JAX
@@ -28,6 +31,7 @@ from manta_tpu.ops.curve import JacobianPoint as JPoint
 from manta_tpu.ops.pallas import rns_kernels as JRK
 from manta_tpu.utils import hostmath as JH
 from manta_tpu_torch.ops import curve as C
+from manta_tpu_torch.ops import msm as M
 from manta_tpu_torch.ops import rns as R
 from manta_tpu_torch.ops.curve import JacobianPoint
 from manta_tpu_torch.ops.kernels import build as B
@@ -140,9 +144,122 @@ def test_plain_columns_equal_jax_kernel(kind):
     jfn = JRK.rns_accumulate_columns if kind == "columns" else JRK.hybrid_accumulate_columns
     want = jfn(jcurve, jnp.asarray(px), jnp.asarray(py), jnp.asarray(qinf.astype(np.int32)),
                jnp.asarray(head.astype(np.int32)))
-    tfn = RK.rns_accumulate_columns if kind == "columns" else RK.hybrid_accumulate_columns
+    tfn = RK.rns_accumulate_columns if kind == "columns" else RK.plain_hybrid_accumulate_columns
     got = tfn(tcurve, *(torch.from_numpy(a) for a in (px, py, qinf, head)))
     _equal(got, want, kind)
+
+
+def test_plain_hybrid_buckets_equal_jax_stream_and_pick():
+    """The hybrid bucket column's plain version (CPU tensors) on the MSM's
+    layout: 2 windows of 64 lanes of K = 8 steps, each window's digits
+    sorted (`msm._sorted_layout`, `_run_end_slots`), window 0 with a run
+    ending on a lane's first step, one ending on a lane's last step and a
+    digit over two whole lanes, window 1 with a lane all at infinity; bit for
+    bit the JAX kernel's stream (`hybrid_accumulate_columns`), its run ends
+    picked into infinity buckets, and its last step."""
+    jcurve, tcurve = JH.BN254_G1, TH.BN254_G1
+    rng = np.random.default_rng(17)
+    windows, lanes, nb = 2, LANES // 2, 40
+    n = lanes * STEPS
+    digits = np.sort(rng.integers(0, nb, (windows, n)), axis=-1)
+    edge = [np.full(STEPS + 1, 1), np.full(STEPS - 1, 2), np.full(2 * STEPS, 3)]
+    digits[0] = np.concatenate(edge + [np.sort(rng.integers(4, nb, n - 4 * STEPS))])
+    flat = host_points(jcurve, rng, windows * n)  # in each window's sorted order
+    flat[n + 3 * STEPS : n + 4 * STEPS] = [None] * STEPS
+    enc = JC.curve_ops_for(jcurve, "rns_hybrid").encode_points(flat)
+
+    def stream(c):  # (L, W·n) -> (K, L, W·R): lane j of window w owns [jK, (j+1)K)
+        c = np.asarray(c).astype(np.int32).reshape(-1, windows, lanes, STEPS)
+        return np.ascontiguousarray(np.moveaxis(c, -1, 0).reshape(STEPS, -1, windows * lanes))
+
+    px, py = stream(enc.x), stream(enc.y)
+    qinf = stream(np.asarray([[p is None for p in flat]]))[:, 0]
+    _, d_t, head, end = M._sorted_layout(torch.from_numpy(digits), STEPS)
+    head = head.reshape(STEPS, -1)
+    slot = M._run_end_slots(d_t, end, nb)
+    got_b, got_a = RK.hybrid_accumulate_buckets(
+        tcurve, torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(qinf), head, slot,
+        windows * nb)
+    want = [np.asarray(c) for c in JRK.hybrid_accumulate_columns(
+        jcurve, jnp.asarray(px), jnp.asarray(py), jnp.asarray(qinf.astype(np.int32)),
+        jnp.asarray(head.numpy().astype(np.int32)))]
+    _equal(got_a, [c[-1] for c in want], "last step")
+    # the run ends, found in numpy: the last sorted position of each digit
+    want_b = [c.numpy().copy() for c in RK._infinity(tcurve, windows * nb, "cpu")]
+    ends = 0
+    for w in range(windows):
+        for i in range(n):
+            if i == n - 1 or digits[w, i] != digits[w, i + 1]:
+                j, k = divmod(i, STEPS)
+                for b, c in zip(want_b, want):
+                    b[:, w * nb + digits[w, i]] = c[k, :, w * lanes + j]
+                ends += 1
+    assert int((slot >= 0).sum()) == ends
+    _equal(got_b, want_b, "buckets")
+
+
+def _jax_kernel_curve(jcurve):
+    """The JAX kernel's formulas over its field ops, run eagerly."""
+    spec = JR.default_spec(jcurve.field)
+    names, fvec, amat, ztab, znorm = JRK._tables(spec)
+    kops = JRK._make_kops(jcurve, spec, names, *map(jnp.asarray, (fvec, amat, ztab, znorm)))
+    return JRK._RnsKernelCurve(jcurve, backend="rns_kernel", kops=kops)
+
+
+@pytest.mark.parametrize("chain", ["horner", "weighted_reduce", "weighted_reduce_signed"])
+def test_plain_combine_equal_jax_double_add_sequence(chain):
+    """The combine's plain version against the JAX kernel's formulas run as
+    the JAX package's MSM runs them, a double or add at a time (BN254 G1):
+    Horner's rule over 4 windows of 2 bits (`msm.horner`, through the
+    backend: acc = 2^c·acc + W_w), with a window at infinity, two equal
+    consecutive windows and a window equal to 2^c·acc (the addition's
+    doubling branch); and the weighted reductions' runs over 5 lanes,
+    add(2^d·hi, lo) and add(acc, 2^d·top) (the doubled point second), with
+    a lane at infinity and a lane where the two operands are equal."""
+    jcurve, tcurve = JH.BN254_G1, TH.BN254_G1
+    kc = _jax_kernel_curve(jcurve)
+    jc = JC.curve_ops_for(jcurve, "rns_fused")
+    rng = np.random.default_rng(23)
+    g = jcurve.generator
+
+    def f32(pt):
+        return JPoint(*(jnp.asarray(a).astype(jnp.float32) for a in pt))
+
+    if chain == "horner":
+        c = 2
+        top = jcurve.scalar_mul(5, g)
+        # W_3 = W_2 = 5·G, W_1 at infinity, W_0 = 400·G = 2^c·acc as it meets acc
+        wins = [jcurve.scalar_mul(400, g), None, top, top]
+        enc = jc.encode_points(wins)  # (Kt, 4)
+        acc = f32(JPoint(*(a[..., 3:] for a in enc)))
+        for w in (2, 1, 0):
+            for _ in range(c):
+                acc = kc.double(acc)
+            acc = kc.add(acc, f32(JPoint(*(a[..., w : w + 1] for a in enc))))
+        got = M.horner(RK.rns_fused_curve_ops_for(tcurve),
+                       _t(JPoint(*(np.asarray(a)[:, :, None] for a in enc))), c)  # (Kt, W, 1)
+        _equal(got, acc, "horner")
+        cops = C.curve_ops_for(tcurve, "rns_fused")
+        assert cops.decode_points(got) == [jcurve.scalar_mul(800, g)]
+        return
+    d, first = (2, True) if chain == "weighted_reduce" else (3, False)
+    ps, qs = host_points(jcurve, rng, 5, 0.0), host_points(jcurve, rng, 5, 0.0)
+    ps[1] = None  # the chain at infinity
+    qs[2] = None  # the other operand at infinity
+    qs[3] = jcurve.scalar_mul(1 << d, ps[3])  # the operands equal after the doublings
+    jp, jq = jc.encode_points(ps), jc.encode_points(qs)
+    chain_pt = kc.double(f32(jp))  # Jacobian (Z != 1), as the reductions' inputs
+    other = kc.double(f32(jq))
+    acc = chain_pt
+    for _ in range(d):
+        acc = kc.double(acc)
+    want = kc.add(acc, other) if first else kc.add(other, acc)
+    init = _t(JPoint(*(np.asarray(a) for a in chain_pt)))
+    addends = _t(JPoint(*(np.asarray(a)[None] for a in other)))
+    got = RK.rns_double_add(tcurve, init, addends, d, first)
+    _equal(got, want, chain)
+    sums = [jcurve.add(jcurve.scalar_mul(2 << d, p), jcurve.double(q)) for p, q in zip(ps, qs)]
+    assert C.curve_ops_for(tcurve, "rns_fused").decode_points(got) == sums
 
 
 @pytest.mark.parametrize("name", ["bn254_g2", "bls12_381_g1"])
@@ -168,7 +285,7 @@ def test_plain_columns_match_host(name):
         want.append(list(acc))
     cops = C.curve_ops_for(tcurve, "rns_fused")
     for backend, fn in (("rns_fused", RK.rns_accumulate_columns),
-                        ("rns_hybrid", RK.hybrid_accumulate_columns)):
+                        ("rns_hybrid", RK.plain_hybrid_accumulate_columns)):
         enc = C.curve_ops_for(tcurve, backend).encode_points(flat, "cpu")
 
         def stream(c):
@@ -212,9 +329,9 @@ def test_from_limbs_matches_encode():
     curve = TH.BLS12_381_G1
     pts = [curve.scalar_mul(k + 1, curve.generator) for k in range(16)]
     limb = C.curve_ops_for(curve, "rns_hybrid").encode_points(pts, "cpu")
-    ox, oy, oz = RK.hybrid_accumulate_columns(curve, limb.x[None], limb.y[None],
-                                              torch.zeros((1, 16), dtype=torch.bool),
-                                              torch.ones((1, 16), dtype=torch.bool))
+    ox, oy, oz = RK.plain_hybrid_accumulate_columns(curve, limb.x[None], limb.y[None],
+                                                    torch.zeros((1, 16), dtype=torch.bool),
+                                                    torch.ones((1, 16), dtype=torch.bool))
     ops = R.RnsCoordOps(curve.field)
     assert ops.decode(ox[0]) == [pt[0] for pt in pts]
     assert ops.decode(oy[0]) == [pt[1] for pt in pts]
@@ -254,7 +371,11 @@ def test_wrappers_reject_bad_input():
     mask = torch.zeros((2, 4), dtype=torch.bool)
     stream = torch.zeros((2, kt, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match=r"\(K, \*E, R\)"):
-        RK.hybrid_accumulate_columns(curve, stream, stream, mask, mask)
+        RK.hybrid_accumulate_buckets(curve, stream, stream, mask, mask, mask, 8)
+    with pytest.raises(ValueError, match="addends"):
+        RK.rns_double_add(curve, good, JacobianPoint(*(c[None, :, :2] for c in good)), 3)
+    with pytest.raises(ValueError, match="addends"):
+        RK.rns_double_add(curve, good, JacobianPoint(*(c[None] for c in good)), -1)
     with pytest.raises(ValueError, match=r"\(K, \*E, R\)"):
         RK.rns_accumulate_columns(curve, stream, stream, mask[:1], mask)
     with pytest.raises(ValueError, match="residues"):

@@ -9,9 +9,10 @@ proves `assignments[0]` of `.bench_prover_pt_aux.json` once to warm up, then
 proves it again under `torch.profiler` and prints: the wall time of each
 phase, the device's busy time (sum of CUDA kernel times) and idle share of
 the proof's wall time, the launches of each field-kernel op, point kernel
-(point ops, bucket columns, folds, combines, merges) and RNS kernel, the device time of
-each kind of point kernel, and the kernels that take the most device time. With --out, the full
-`key_averages` table is written to PATH.
+(point ops, bucket columns, folds, combines, merges) and RNS kernel (point
+ops, columns, hybrid bucket columns, combines), the device time of each kind
+of point kernel and of RNS kernel, and the kernels that take the most
+device time. With --out, the full `key_averages` table is written to PATH.
 Needs one CUDA device.
 """
 
@@ -103,6 +104,19 @@ def main() -> int:
                     break
         print("point kernels by kind (device ms, launches): " + json.dumps(
             {k: [ms, n] for k, (ms, n) in kinds.items()}))
+        rns = {}  # the RNS kernels (rns_kernels.cu): no manta:: template argument
+        for t, count, key in rows:
+            if "manta::" in key:
+                continue
+            for kind in ("hybrid_bucket_kernel", "combine_kernel", "column_kernel",
+                         "point_kernel", "zero_kernel"):
+                if f"::{kind}" in key:
+                    ms, n = rns.get(kind, (0.0, 0))
+                    rns[kind] = (ms + t / 1e3, n + count)
+                    break
+        if rns:
+            print("RNS kernels by kind (device ms, launches): " + json.dumps(
+                {k: [ms, n] for k, (ms, n) in rns.items()}))
         print("top kernels by device time (us total, launches, name):")
         for t, count, key in sorted(rows, reverse=True)[:12]:
             print(f"  {t:14.1f} {count:8d}  {key[:90]}")
