@@ -15,70 +15,84 @@ phase catches its own failure:
    lazy values plus the edge values 0, 1, p-1, p, 2p-1; time kernel and
    plain version at the prover's shapes beside the bound (the kernel's device
    time from a replayed CUDA graph, and its time a call from Python);
-4. hold the point-op (add, madd, double), bucket-column, fold, combine and
-   merge kernels against their plain versions, bit for bit, on BN254 G1 and
-   G2 and BLS12-381 G1 and G2: point ops over 1000 lanes with the lanes P+P,
-   P+(-P), P+inf, inf+Q and inf+inf; the bucket column at K = 16 over 4
-   windows of 256 lanes with sorted digits (`bucket_stream`: a lane of q,
-   -q, q, ..., a lane of one point repeated (the doubling branch), one digit
-   across whole lanes, runs ending on a chunk's first and last step, empty
-   buckets, a lane at infinity and a tenth of the points at infinity); the
-   fold at K = 16, R = 1024 with random heads plus an all-head row; the fold
-   (with and without B) also at K = 37 (4 threads a lane, 37 not a multiple
-   of 4) and K = 128 (32 threads a lane) with an all-head and a no-head
-   lane, heads on the first and on the last step of every chunk, a lane of
-   q, -q, q, ... (inner sums at infinity) and a lane of one point repeated
-   (inner sums double); the combine at 20 windows of 13 bits (5 weight
-   doublings) and at 3 windows; the merge over 4000 buckets with 1200
-   level-1 and 300 level-2 partials (`merge_inputs`: partials -a and a,
-   infinite partials, buckets at infinity with other coordinates, dead
-   keys), also against the dense additions it replaced;
-5. the same for the RNS kernels (point op, column, hybrid bucket column,
-   combine) against their plain versions, bit for bit, on the four curves:
-   the hybrid bucket column on `bucket_stream`'s edge lanes, the combine on
-   Horner's shape (one lane, 19 steps of 13 doublings) and the weighted
-   reductions' (40 lanes, one step of 12 or 6 doublings, either operand
+4. hold the point-op (add, madd, double), bucket-column, fold, combine,
+   merge and chain kernels against their plain versions, bit for bit, on
+   BN254 G1 and G2 and BLS12-381 G1 and G2: point ops (a group of 2 threads
+   a lane on G1, one thread on G2) over 1000 lanes with the lanes P+P,
+   P+(-P), P+inf, inf+Q and inf+inf, and on BN254 the point addition built
+   for 1, 2 and 4 threads a lane (`point_kernels.POINT_GROUPS`, timed in
+   phase 7); the
+   bucket column at K = 16 over 4 windows of 256 lanes with sorted digits
+   (`bucket_stream`: a lane of q, -q, q, ..., a lane of one point repeated
+   (the doubling branch), one digit across whole lanes, runs ending on a
+   chunk's first and last step, empty buckets, a lane at infinity and a
+   tenth of the points at infinity); the fold at K = 16, R = 1024 with
+   random heads plus an all-head row; the fold (with and without B) also at
+   K = 37 (4 threads a lane, 37 not a multiple of 4) and K = 128 (32 threads
+   a lane) with an all-head and a no-head lane, heads on the first and on
+   the last step of every chunk, a lane of q, -q, q, ... (inner sums at
+   infinity) and a lane of one point repeated (inner sums double); the
+   combine at 20 windows of 13 bits (5 weight doublings) and at 3 windows;
+   the merge over 4000 buckets with 1200 level-1 and 300 level-2 partials
+   (`merge_inputs`: partials -a and a, infinite partials, buckets at
+   infinity with other coordinates, dead keys), also against the dense
+   additions it replaced; the chain kernel (`fused_double_add`) on Horner's
+   shape (one lane, and 8 lanes, 19 steps of 13 doublings) and the weighted
+   reductions' (20 lanes, one step of 12 or 6 doublings, either operand
    order) with edge chains (`combine_inputs`: acc = W_w, a sum at infinity,
-   chains and addends at infinity); and the RNS kernels' table-free zero
-   test against the 2^13-row zero-class table on the values k·p and
-   k·p ± 1, k < 8192;
+   chains and addends at infinity);
+5. the same for the RNS kernels (point op, bucket column with RNS points in
+   and with limb points in, combine) against their plain versions, bit for
+   bit, on the four curves: both bucket columns on `bucket_stream`'s edge
+   lanes (the RNS one on the same points converted to RNS, its buckets also
+   the hybrid one's), the combine on Horner's shape (8 lanes, 19 steps of 13
+   doublings) and the weighted reductions' (40 lanes, one step of 12 or 6
+   doublings, either operand order) with `combine_inputs`' edge chains; and
+   the RNS kernels' table-free zero test against the 2^13-row zero-class
+   table on the values k·p and k·p ± 1, k < 8192;
 6. MSMs on the card: BN254 G1 over 65536 points (i+1)·G (window 13, 128
    column steps: the fold path) and over 4096 points (32 lanes: no fold
-   path, where the point-op kernel adds; its launches are counted there) on
-   the fused backend, and 4096 points on the limb backend; BN254
-   G1 over 65536 points on "rns_fused" and "rns_hybrid" and BLS12-381 G1
-   over 65536 points on "rns_hybrid" (window 13); each checked against
+   path, where the point-op and chain kernels run; their launches are
+   counted there: no point-op doubling, at most 48 additions, 3 chains, and
+   every point-op and chain call recorded) on the fused backend, and 4096
+   points on the limb backend; BN254 G1 over 65536 points on "rns_fused"
+   (one RNS bucket column, no stream) and "rns_hybrid" and BLS12-381 G1 over
+   65536 points on "rns_hybrid" (window 13); each checked against
    (sum (i+1)·s_i mod r)·G as `bench.py` checks;
 7. the production PrivateTransfer prover from `.bench_prover_pt.npz` on the
    backend its meta records (fused), two proofs (r, s) = (7, 9) and (2, 3),
    each verified by the host pairing against `.bench_prover_pt_vk.bin`,
    with the launch count of every kernel read around that run (bucket column
-   4, fold 16, combine 4 and merge 4 a proof, no point op); the point
-   kernels' calls of the first proof (bucket columns, every fold level, the
-   combines, the merges) are recorded, each (kernel, curve, shape) held bit
-   for bit against the same formulas through the limb `CurveOps` on the card
-   on the recorded inputs (the merge against the dense additions it
-   replaced; and at the shape its `kernels` entry reports, against the plain
-   version too), then timed at that shape beside its bound; the single-lane
-   doubling that the combine replaced, and the dense point-op addition of
-   the bucket merge that the merge kernel replaced, are timed as
-   yardsticks;
+   4, fold 16, combine 4 and merge 4 a proof, no point op, no chain); the
+   point kernels' calls of the first proof (bucket columns, every fold
+   level, the combines, the merges) are recorded, each (kernel, curve,
+   shape) held bit for bit against the same formulas through the limb
+   `CurveOps` on the card on the recorded inputs (the merge against the
+   dense additions it replaced; and at the shape its `kernels` entry
+   reports, against the plain version too), then timed at that shape beside
+   its bound; the point-op and chain calls of phase 6's MSM off the fold
+   path the same way (the point op's largest addition its reported shape);
+   the single-lane doubling that the combine replaced, and the dense
+   point-op addition of the bucket merge that the merge kernel replaced (the
+   point op's yardstick shape), are timed, the latter also with the point op
+   built for 1, 2 and 4 threads a lane;
 8. one proof on the limb backend, verified, its launches read around it;
-9. the main path of the RNS slice: the same prover on "rns_hybrid" (its
-   limb points as they are), two proofs verified, launches read around
-   them (exactly 8 hybrid bucket columns and 24 combines, no column stream,
-   no single-lane doubling, no mixed-add point op); every RNS-kernel call of
-   the first proof recorded, held bit for bit against its plain version on
-   the recorded inputs and timed beside its bound; the column kernel timed
-   at the prover's G1 shape on the same points converted to RNS, its run
-   ends held against the hybrid bucket column's buckets there; the
+9. the production prover on "rns_hybrid" (its limb points as they are), two
+   proofs verified, launches read around them (exactly 8 hybrid bucket
+   columns and 24 combines, no RNS-input bucket column, no single-lane
+   doubling, no mixed-add point op); every RNS-kernel call of the first
+   proof recorded, held bit for bit against its plain version on the
+   recorded inputs and timed beside its bound; the RNS bucket column (B7)
+   timed at the prover's G1 shape on the same points converted to RNS, its
+   buckets and last step held against the hybrid bucket column's there; the
    single-lane doubling the combine replaced timed as a yardstick;
 10. the port's entry point: `torch_entry.dryrun()` ("rns_fused", the
    Poseidon-preimage circuit) proves and verifies, launches read around it
-   (no single-lane doubling); every RNS-kernel call of that proof (point
-   ops, columns and combines, G1 and G2) recorded, held bit for bit against
-   its plain version on the recorded inputs and timed; its largest G1 column
-   call is the column kernel's reported shape;
+   (bucket columns with RNS points in, no single-lane doubling, no hybrid
+   column); every RNS-kernel call of that proof (point ops, bucket columns
+   and combines, G1 and G2) recorded, held bit for bit against its plain
+   version on the recorded inputs and timed; its largest G1 bucket-column
+   call is that kernel's reported shape;
 11. one JSON line describing each ported kernel, then the card's
    `nvidia-smi` line, then the last line {"ok": true, "device": {...}}.
 """
@@ -116,12 +130,15 @@ POINT_REPLACES = {
     "combine": "manta_tpu/ops/pallas/point_kernels.py:501",
     # the two dense bucket merges that ran as `_point_op` launches
     "merge": "manta_tpu/ops/pallas/point_kernels.py:501",
+    # Horner's rule and the weighted reductions' doubling runs off the fold
+    # path, which ran as `_point_op` launches
+    "chain": "manta_tpu/ops/pallas/point_kernels.py:501",
 }
 RNS_SOURCE = "manta_tpu_torch/csrc/rns_kernels.cu"
 RNS_REPLACES = {
     "point": "manta_tpu/ops/pallas/rns_kernels.py:739",
-    "columns": "manta_tpu/ops/pallas/rns_kernels.py:511",
-    "buckets": "manta_tpu/ops/pallas/rns_kernels.py:599",
+    "buckets": "manta_tpu/ops/pallas/rns_kernels.py:511",
+    "hybrid": "manta_tpu/ops/pallas/rns_kernels.py:599",
     # Horner's rule and the weighted reductions' doubling runs, which ran as
     # `_rns_point_op` launches
     "combine": "manta_tpu/ops/pallas/rns_kernels.py:739",
@@ -308,15 +325,18 @@ def build_kernels() -> dict:
     from manta_tpu_torch.ops.kernels import point_kernels as PK
     from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
-    libs = [FK.LIBRARY, *PK.LIBRARIES, *RK.LIBRARIES]
+    # the point op built for each number of threads a lane, on BN254 (timed
+    # in phase 7); the curve's own choice is in its library
+    groups = [PK.library(name, g) for name in ("bn254_g1", "bn254_g2") for g in PK.POINT_GROUPS]
+    libs = [FK.LIBRARY, *PK.LIBRARIES, *groups, *RK.LIBRARIES]
     t0 = time.perf_counter()
     paths = B.build(libs, verbose=True)
     seconds = time.perf_counter() - t0
     log(f"  built {len(paths)} libraries in {seconds:.3f} s: "
         + ", ".join(os.path.relpath(p, ROOT) for p in paths))
-    report = {"field": {}, "point": {}, "buckets": {}, "fold": {}, "combine": {}, "merge": {},
-              "rns_point": {}, "rns_columns": {}, "rns_buckets": {}, "rns_combine": {},
-              "seconds": seconds}
+    report = {"field": {}, "point": {}, "point_groups": {}, "buckets": {}, "fold": {},
+              "combine": {}, "merge": {}, "chain": {}, "rns_point": {}, "rns_buckets": {},
+              "rns_hybrid": {}, "rns_combine": {}, "seconds": seconds}
     texts = {what: text for lib in libs for what, text in B.reports(lib).items()}
     if len(texts) != sum(len(lib.units) for lib in libs):
         raise AssertionError(f"compiler reports missing: have {sorted(texts)}")
@@ -325,6 +345,11 @@ def build_kernels() -> dict:
         spills = [int(a) + int(b) for a, b in
                   re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
         return {"registers": max(regs), "spill_bytes": max(spills, default=0)}
+
+    def split(text, kernel):  # (usage without `kernel`'s entries, usage of them)
+        entries = text.split("Compiling entry function")
+        theirs = "".join(e for e in entries[1:] if kernel in e)
+        return usage(entries[0] + "".join(e for e in entries[1:] if kernel not in e)), usage(theirs)
 
     for what, text in texts.items():
         row = usage(text)
@@ -338,13 +363,15 @@ def build_kernels() -> dict:
             report[kind][f"{curve} {kernel}" if kind == "rns_point" else curve] = row
             continue
         curve = what.split()[0].removeprefix("point_kernels-")
+        if "MANTA_POINT_GROUP" in what:  # the add object of a point-group library
+            report["point_groups"][curve] = split(text, "merge_kernel")[0]
+            continue
         kernel = PK.KERNELS[int(what.rsplit("=", 1)[1])]
         kind = "point" if kernel in ("add", "madd", "double") else kernel
         if kernel == "add":  # the add object also holds the merge kernel
-            entries = text.split("Compiling entry function")
-            merge = "".join(e for e in entries[1:] if "merge_kernel" in e)
-            row = usage(entries[0] + "".join(e for e in entries[1:] if "merge_kernel" not in e))
-            report["merge"][curve] = usage(merge)
+            row, report["merge"][curve] = split(text, "merge_kernel")
+        if kernel == "combine":  # and the combine object the chain kernel
+            row, report["chain"][curve] = split(text, "chain_kernel")
         report[kind][f"{curve} {kernel}" if kind == "point" else curve] = row
     for kind, rows in report.items():
         if kind != "seconds":
@@ -382,7 +409,7 @@ def check_point_kernels() -> dict:
     from manta_tpu_torch.ops.kernels import point_kernels as PK
 
     rng = np.random.default_rng(SEED + 1)
-    max_err = {"point": 0, "buckets": 0, "fold": 0, "combine": 0, "merge": 0}
+    max_err = {"point": 0, "buckets": 0, "fold": 0, "combine": 0, "merge": 0, "chain": 0}
 
     def hold(kind, what, got, want):
         torch.cuda.synchronize()
@@ -403,6 +430,19 @@ def check_point_kernels() -> dict:
                             ("madd", (pa, pa)), ("double", (p2,))):
             hold("point", f"{name} {which}", getattr(PK, f"fused_{which}")(curve, *args),
                  PK.PLAIN[which](curve, *args))
+        if name in ("bn254_g1", "bn254_g2"):  # the point-group builds timed in phase 7
+            for args in ((p2, q2), (pa, pa)):
+                want = PK.plain_add(curve, *args)
+                for g in PK.POINT_GROUPS:
+                    hold("point", f"{name} add, {g} threads a lane",
+                         PK._point_op(curve, "add", *args, point_group=g), want)
+        cops = C.curve_ops_for(curve, "fused")
+        for n, steps, doublings, first in ((1, 19, 13, True), (8, 19, 13, True),
+                                           (20, 1, 12, False), (20, 1, 6, True)):
+            init, addends = combine_inputs(curve, cops, rng, n, steps, doublings, first)
+            hold("chain", f"{name} chain (n={n}, {steps} steps of {doublings} doublings)",
+                 PK.fused_double_add(curve, init, addends, doublings, first),
+                 PK.plain_fused_double_add(curve, init, addends, doublings, first))
         K, R = 16, 1024
         args = bucket_stream(curve, limb, rng, K, 4, R // 4, 513)
         got_b, got_a = PK.accumulate_buckets(curve, *args)
@@ -440,8 +480,8 @@ def check_point_kernels() -> dict:
                  PK.plain_combine_windows(curve, a, b, 5, 13))
         log(f"  {name}: point add / madd / double over 1000 lanes, bucket column and fold at "
             f"K={K}, R={R} (edge lanes), fold at K=37 and 128 (R=40, edge lanes), combine at "
-            f"W=20 and 3, merge over 4000 buckets (edge partials): bit-equal to the plain "
-            f"versions")
+            f"W=20 and 3, merge over 4000 buckets (edge partials), chain on Horner's and the "
+            f"reductions' shapes (edge chains): bit-equal to the plain versions")
     return max_err
 
 
@@ -556,7 +596,7 @@ def check_rns_kernels() -> dict:
     from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
     rng = np.random.default_rng(SEED + 2)
-    max_err = {"point": 0, "columns": 0, "buckets": 0, "combine": 0}
+    max_err = {"point": 0, "buckets": 0, "hybrid": 0, "combine": 0}
 
     def hold(kind, what, got, want):
         torch.cuda.synchronize()
@@ -577,32 +617,27 @@ def check_rns_kernels() -> dict:
                             ("madd", (pa, pa)), ("double", (p2,))):
             hold("point", f"{name} RNS {which}", getattr(RK, f"rns_{which}")(curve, *args),
                  RK.PLAIN[which](curve, *args))
+        # both bucket columns on the MSM's layout: limb points in, and the same
+        # points converted to RNS
         K, R_ = 16, 1024
-        flat = host_points(curve, rng, K * R_)
-        head = torch.from_numpy(rng.random((K, R_)) < 0.3).cuda()
-        qinf = torch.from_numpy(rng.random((K, R_)) < 0.1).cuda()
-        head[3] = True
-        qinf[:, 5] = True
-
-        def stream(c):  # lane j owns points [j*K, (j+1)*K)
-            return c.reshape(*c.shape[:-1], R_, K).movedim(-1, 0).contiguous()
-
-        enc = cops.encode_points(flat, "cuda")
-        px, py = stream(enc.x), stream(enc.y)
-        hold("columns", f"{name} RNS columns", RK.rns_accumulate_columns(curve, px, py, qinf, head),
-             RK.plain_rns_accumulate_columns(curve, px, py, qinf, head))
-        # the hybrid bucket column on the MSM's layout, limb points in
         args = bucket_stream(curve, C.curve_ops_for(curve, "limb"), rng, K, 4, R_ // 4, 513)
         got_b, got_a = RK.hybrid_accumulate_buckets(curve, *args)
         want_b, want_a = RK.plain_hybrid_accumulate_buckets(curve, *args)
-        hold("buckets", f"{name} RNS hybrid bucket column", [*got_b, *got_a], [*want_b, *want_a])
+        hold("hybrid", f"{name} RNS hybrid bucket column", [*got_b, *got_a],
+             [*want_b, *want_a])
+        rns_args = (to_rns(curve, args[0]), to_rns(curve, args[1]), *args[2:])
+        got_b, got_a = RK.rns_accumulate_buckets(curve, *rns_args)
+        plain_b, plain_a = RK.plain_rns_accumulate_buckets(curve, *rns_args)
+        hold("buckets", f"{name} RNS bucket column", [*got_b, *got_a], [*plain_b, *plain_a])
+        hold("buckets", f"{name} RNS bucket column vs the hybrid one", [*got_b, *got_a],
+             [*want_b, *want_a])
         for n, steps, doublings, first in ((8, 19, 13, True), (40, 1, 12, False), (40, 1, 6, True)):
             init, addends = combine_inputs(curve, cops, rng, n, steps, doublings, first)
             hold("combine", f"{name} RNS combine (n={n}, {steps} steps of {doublings} doublings)",
                  RK.rns_double_add(curve, init, addends, doublings, first),
                  RK.plain_rns_double_add(curve, init, addends, doublings, first))
-        log(f"  {name}: RNS point add / madd / double over 1000 lanes, column at K={K}, R={R_}, "
-            f"hybrid bucket column at K={K}, R={R_} (edge lanes), combine on Horner's and the "
+        log(f"  {name}: RNS point add / madd / double over 1000 lanes, bucket column (RNS and "
+            f"limb points in) at K={K}, R={R_} (edge lanes), combine on Horner's and the "
             f"reductions' shapes (edge chains): bit-equal to the plain versions")
         if not curve.is_ext:
             spec = R.default_spec(curve.field)
@@ -621,43 +656,69 @@ def check_rns_kernels() -> dict:
     return max_err
 
 
-def combine_inputs(curve, cops, rng, n, steps, doublings, chain_first, device="cuda"):
-    """Arguments of `rns_double_add`: n chains of `steps` addends, Jacobian
-    (Z != 1) and a fifth at infinity, with edge chains: lane 0's second
-    addend equals its chain's value when it is added (the addition's
-    doubling branch: acc = W_w), lane 1's first addend is the negation of it
-    (the sum at infinity), lane 2 starts at infinity and lane 3's addends
-    are all at infinity."""
-    from manta_tpu_torch.ops.curve import JacobianPoint
+def to_rns(curve, stream):
+    """(K, *E(L), R) 16-bit Montgomery limbs -> (K, *E(Kt), R) RNS residues of
+    the same values (the hybrid column's conversion, in PyTorch)."""
     from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
+    ops = RK._plain_curve(curve).ops
+    return ops.from_limbs(stream.movedim(0, -2)).movedim(-2, 0).contiguous()
+
+
+def combine_inputs(curve, cops, rng, n, steps, doublings, chain_first, device="cuda"):
+    """Arguments of a chain kernel, `rns_double_add` (`cops` an RNS backend)
+    or `fused_double_add` (the fused backend): n chains of `steps` addends,
+    Jacobian (Z != 1) and a fifth at infinity, with edge chains where there
+    are lanes for them: lane 0's second addend equals its chain's value when
+    it is added (the addition's doubling branch: acc = W_w), lane 1's first
+    addend is the negation of it (the sum at infinity), lane 2 starts at
+    infinity and lane 3's addends are all at infinity."""
+    from manta_tpu_torch.ops import curve as C
+    from manta_tpu_torch.ops.curve import JacobianPoint
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
+
+    if cops.backend == "rns":
+        def double(p):
+            return RK.plain_rns_point_op(curve, "double", p)
+
+        def neg_y(y):  # −y + 2^10·p: a doubling's y is below 2^9.2·p (`RnsCurveOps.double`)
+            return RK._plain_curve(curve).ops.sub_k(torch.zeros_like(y), y, 10)
+
+        chain, infinity = RK.plain_rns_double_add, RK._infinity
+    else:
+        def double(p):
+            return PK.plain_double(curve, p)
+
+        neg_y = C.curve_ops_for(curve, "limb").ops.neg
+        chain, infinity = PK.plain_fused_double_add, PK._infinity
+
     def pts(k):
-        return RK.plain_rns_point_op(curve, "double", cops.encode_points(
-            host_points(curve, rng, k, 0.2), device))
+        return double(cops.encode_points(host_points(curve, rng, k, 0.2), device))
 
     init = pts(n)
     addends = JacobianPoint(*(torch.stack(c) for c in zip(*(pts(n) for _ in range(steps)))))
-    for c, i, a in zip(addends, RK._infinity(curve, 1, device), init):
-        c[..., 3] = i[..., 0]
-        a[..., 2] = i[..., 0]
+    for c, i, a in zip(addends, infinity(curve, 1, device), init):
+        if n > 3:
+            c[..., 3] = i[..., 0]
+        if n > 2:
+            a[..., 2] = i[..., 0]
 
     def chain_value(lane, upto):  # lane's acc, doubled, as addend `upto` meets it
-        acc = RK.plain_rns_double_add(
-            curve, JacobianPoint(*(c[..., lane : lane + 1] for c in init)),
-            JacobianPoint(*(c[:upto, ..., lane : lane + 1] for c in addends)), doublings,
-            chain_first)
+        acc = chain(curve, JacobianPoint(*(c[..., lane : lane + 1] for c in init)),
+                    JacobianPoint(*(c[:upto, ..., lane : lane + 1] for c in addends)), doublings,
+                    chain_first)
         for _ in range(doublings):
-            acc = RK.plain_rns_point_op(curve, "double", acc)
+            acc = double(acc)
         return acc
 
     if steps > 1:
         for c, v in zip(addends, chain_value(0, 1)):
             c[1, ..., 0:1] = v
-    v = chain_value(1, 0)
-    # −y + 2^10·p: a doubling's y is below 2^9.2·p (`RnsCurveOps.double`)
-    neg_y = RK._plain_curve(curve).ops.sub_k(torch.zeros_like(v.y), v.y, 10)
-    for c, w in zip(addends, (v.x, neg_y, v.z)):
-        c[0, ..., 1:2] = w
+    if n > 1:
+        v = chain_value(1, 0)
+        for c, w in zip(addends, (v.x, neg_y(v.y), v.z)):
+            c[0, ..., 1:2] = w
     return init, addends
 
 
@@ -690,24 +751,29 @@ def check_msm(cops, pts, steps, label):
     points = cops.encode_points(pts, "cuda")
     torch.cuda.synchronize()
     FK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     got = M.msm(cops, sc, points, 13, steps, curve.scalar_field.bits)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     field_launches = dict(FK.LAUNCHES)
     want = curve.scalar_mul(sum((i + 1) * s for i, s in enumerate(scalars)) % r, curve.generator)
     if cops.decode_points(got)[0] != want:
         raise AssertionError(f"{label} disagrees with (sum (i+1)·s_i)·G")
-    log(f"  {label}: {dt:.3f} s, equal to (sum (i+1)·s_i)·G; "
-        f"field-kernel launches in it {field_launches}")
+    log(f"  {label}: {dt:.3f} s, equal to (sum (i+1)·s_i)·G; device memory allocated at its "
+        f"peak above its inputs {peak:.3f} GiB; field-kernel launches in it {field_launches}")
     return field_launches
 
 
-def check_msms() -> dict:
+def check_msms():
     """The MSMs of phase 6; returns the point-kernel launches of the fused
-    MSM off the fold path, the path where the point-op kernel still adds."""
+    MSM off the fold path, the path where the point-op and chain kernels
+    run, and a recorder of their calls there."""
     from manta_tpu_torch.ops import curve as C
     from manta_tpu_torch.ops.kernels import point_kernels as PK
+    from manta_tpu_torch.ops.kernels import rns_kernels as RK
     from manta_tpu_torch.utils import hostmath
 
     curve = hostmath.BN254_G1
@@ -719,18 +785,32 @@ def check_msms() -> dict:
     if sum(glue.values()) > 4:
         raise AssertionError(f"the fused MSM ran field-kernel launches {glue}")
     PK.reset_launches()
-    check_msm(fused, pts[:4096], 128, "BN254 G1 MSM n=4096, fused, 32 lanes (no fold path)")
+    with Recorder() as recorder:
+        check_msm(fused, pts[:4096], 128, "BN254 G1 MSM n=4096, fused, 32 lanes (no fold path)")
     off_fold = dict(PK.LAUNCHES)
     log(f"  point-kernel launches in it: {json.dumps(off_fold)}")
-    if off_fold["add"] <= 0 or off_fold["buckets"] != 1:
+    # Horner's rule and the two weighted reductions' doubling runs are one
+    # chain launch each; the point op only adds (69 additions and 265
+    # doublings before the chain kernel, of which the chains took 21 and all)
+    if (off_fold["double"] or off_fold["madd"] or not 0 < off_fold["add"] <= 48
+            or off_fold["chain"] != 3 or off_fold["buckets"] != 1):
         raise AssertionError(f"the fused MSM off the fold path launched {off_fold}")
     check_msm(limb, pts[:4096], 128, "BN254 G1 MSM n=4096, limb")
     for backend in ("rns_fused", "rns_hybrid"):
+        RK.reset_launches()
         check_msm(C.curve_ops_for(curve, backend), pts, 128, f"BN254 G1 MSM n=65536, {backend}")
+        # one bucket column (RNS points in on rns_fused, limb points on
+        # rns_hybrid) writing run ends only: no column writes a stream
+        launched = {k: RK.LAUNCHES[k] for k in ("buckets", "hybrid", "double")}
+        want = {"buckets": int(backend == "rns_fused"), "hybrid": int(backend == "rns_hybrid"),
+                "double": 0}
+        if launched != want or "columns" in RK.LAUNCHES:
+            raise AssertionError(f"the {backend} MSM launched {dict(RK.LAUNCHES)}")
+        log(f"  RNS-kernel launches in it: {json.dumps(RK.LAUNCHES)}")
     bls = hostmath.BLS12_381_G1
     check_msm(C.curve_ops_for(bls, "rns_hybrid"), multiples_of_g(bls, 65536), 128,
               "BLS12-381 G1 MSM n=65536, rns_hybrid")
-    return off_fold
+    return off_fold, recorder
 
 
 # ---------------------------------------------------------------------------
@@ -808,9 +888,7 @@ class Recorder:
         from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
         self.mod = RK if rns else PK
-        self.names = ("_point_op", "rns_accumulate_columns", "hybrid_accumulate_buckets",
-                      "rns_double_add") if rns else (
-            "_point_op", "accumulate_buckets", "fold_columns", "combine_windows", "merge_buckets")
+        self.names = ("_point_op", *RNS_WRAPPERS) if rns else ("_point_op", *POINT_WRAPPERS)
         self.calls, self.saved = {}, {}
 
     def __enter__(self):
@@ -827,17 +905,14 @@ class Recorder:
         from manta_tpu_torch.ops import curve as C
 
         def call(curve, *args):
-            if name == "_point_op":
+            kind = "point" if name == "_point_op" else {**RNS_WRAPPERS, **POINT_WRAPPERS}[name]
+            if kind == "point":
                 key = (args[0], curve.name, tuple(args[1].x.shape))
-            elif name in RNS_WRAPPERS:
-                kind = RNS_WRAPPERS[name]
-                if kind == "combine":  # (init, addends, doublings, chain_first)
-                    key = (kind, curve.name, tuple(args[1].x.shape), args[2], bool(args[3]))
-                else:  # (px, py, qinf, head[, slot, num_slots])
-                    key = (kind, curve.name, tuple(args[0].shape))
-            else:
-                kind = {"accumulate_buckets": "buckets", "fold_columns": "fold",
-                        "combine_windows": "combine", "merge_buckets": "merge"}[name]
+            elif kind in ("combine", "chain") and name != "combine_windows":
+                # (init, addends, doublings[, chain_first])
+                first = bool(args[3]) if len(args) > 3 else True
+                key = (kind, curve.name, tuple(args[1].x.shape), args[2], first)
+            else:  # (px, py, ...), (qx, qy, qz, ...) or points first
                 first = args[0].x if kind in ("combine", "merge") else args[0]
                 key = (kind, curve.name, tuple(first.shape))
                 if kind == "merge" and key not in self.calls:
@@ -868,6 +943,11 @@ def prove_production(backend=None, proofs=((0, (7, 9)), (1, (2, 3))), record=Fal
 # ---------------------------------------------------------------------------
 # timing the point kernels at the shapes the proof gave them
 # ---------------------------------------------------------------------------
+
+# the point-kernel wrappers the recorder wraps (besides `_point_op`), by kind
+POINT_WRAPPERS = {"accumulate_buckets": "buckets", "fold_columns": "fold",
+                  "combine_windows": "combine", "merge_buckets": "merge",
+                  "fused_double_add": "chain"}
 
 # Montgomery products per formula: (base-field products of G1, of G2; an Fq2
 # product is 3 base products, an Fq2 square 2)
@@ -915,6 +995,13 @@ def point_bound_ms(kind, curve, args):
         coords = 6 * qx.numel() + head.numel() + (3 * qx[0].numel() if sums else 0)
         products = PRODUCTS["add"][g] * (int((~head.bool()).sum())
                                          + (head.numel() if sums else 0))
+    elif kind == "chain":  # (init, addends, doublings, chain_first): init read,
+        # the addends read, the result written; the chain's doublings and additions
+        init, addends, doublings, _ = args
+        coords = 6 * init.x.numel() + 3 * addends.x.numel()
+        lanes = init.x.numel() // (curve.field.num_limbs * (2 if curve.is_ext else 1))
+        products = lanes * addends.x.shape[0] * (doublings * PRODUCTS["double"][g]
+                                                 + PRODUCTS["add"][g])
     else:  # combine: (a, b, doublings, window_bits); a, b (*E, 2W) -> (*E, 1)
         a, _, doublings, window_bits = args
         windows = a.x.shape[-1] // 2
@@ -927,17 +1014,22 @@ def point_bound_ms(kind, curve, args):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-# the shape of each kernel that its `kernels` entry reports, with its plain
-# time: the G1 bucket column of MSM A, the weighted fold's first level, the
-# G1 combine, the G1 merge, and the dense point-op addition of the bucket
-# merge that the merge kernel replaced (one of two a G1 MSM)
+# the shape of each kernel that its `kernels` entry reports from the fused
+# proof, with its plain time: the G1 bucket column of MSM A, the weighted
+# fold's first level, the G1 combine, the G1 merge
 MAIN_SHAPES = {
     "buckets": ("buckets", "bn254_g1", (128, 16, 10240)),
     "fold": ("fold", "bn254_g1", (32, 16, 2560)),
     "combine": ("combine", "bn254_g1", (16, 40)),
     "merge": ("merge", "bn254_g1", (16, 81940)),
-    "point": ("add", "bn254_g1", (16, 81940)),
 }
+# the point op's yardstick, its reported shape before the chain kernel: the
+# dense point-op addition of the bucket merge that the merge kernel replaced
+# (one of two a G1 MSM)
+POINT_YARDSTICK = ("add", "bn254_g1", (16, 81940))
+# the chain kernel's reported call in the fused MSM off the fold path:
+# Horner's rule, 19 windows after the first, 13 doublings each
+CHAIN_MAIN = ("chain", "bn254_g1", (19, 16, 1), 13, True)
 
 
 def reference(kind, which, curve, args):
@@ -947,8 +1039,12 @@ def reference(kind, which, curve, args):
     from manta_tpu_torch.ops import curve as C
     from manta_tpu_torch.ops.kernels import point_kernels as PK
 
+    from manta_tpu_torch.ops import msm as M
+
     if kind == "point":
         return getattr(C.curve_ops_for(curve, "limb"), which)(*args[1:])
+    if kind == "chain":
+        return M.double_add_loop(C.curve_ops_for(curve, "limb"), *args)
     limb = {"buckets": PK.limb_accumulate_buckets, "fold": PK.limb_fold_columns,
             "combine": PK.limb_combine_windows, "merge": PK.limb_merge_buckets}[kind]
     return limb(curve, *args)
@@ -961,20 +1057,17 @@ def _coords(out) -> list:
     return list(out)
 
 
-def time_recorded(recorder, max_err) -> dict:
-    """Hold every recorded call of the proof against the limb reference on
-    the card, and at the `MAIN_SHAPES` also against the plain version (the
-    host integers), bit for bit, on the recorded inputs; raise on any
-    difference, and keep the largest in `max_err`. Then time each call."""
+def time_recorded(recorder, max_err, main_shapes) -> dict:
+    """Hold every recorded call against the limb reference on the card, and
+    at the `main_shapes` also against the plain version (the host integers),
+    bit for bit, on the recorded inputs; raise on any difference, and keep
+    the largest in `max_err`. Then time each call."""
     from manta_tpu_torch.ops import curve as C
     from manta_tpu_torch.ops.kernels import point_kernels as PK
 
-    plain = {"buckets": PK.plain_accumulate_buckets, "fold": PK.plain_fold_columns,
-             "combine": PK.plain_combine_windows, "merge": PK.plain_merge_buckets}
-    rows = {"point": [], "buckets": [], "fold": [], "combine": [], "merge": []}
-    for (which, curve_name, shape), (fn, curve, args) in sorted(
-        recorder.calls.items(), key=lambda kv: kv[0]
-    ):
+    rows = {"point": [], "buckets": [], "fold": [], "combine": [], "merge": [], "chain": []}
+    for key, (fn, curve, args) in sorted(recorder.calls.items(), key=lambda kv: kv[0]):
+        which, curve_name, shape = key[:3]
         kind = "point" if which in PRODUCTS else which
         if kind == "merge":  # in place: a copy for each use
             kept = args
@@ -984,10 +1077,13 @@ def time_recorded(recorder, max_err) -> dict:
             args = kept
         err = _max_err(got, _coords(reference(kind, which, curve, args)))
         row = {"op": which, "curve": curve_name, "shape": list(shape)}
-        main = MAIN_SHAPES[kind] == (which, curve_name, shape)
+        if kind == "chain":
+            row["doublings"], row["chain_first"] = key[3:]
+        main = main_shapes.get(kind) == key
         if main:
             t0 = time.perf_counter()
-            want = PK.PLAIN[which](curve, *args[1:]) if kind == "point" else plain[kind](curve, *args)
+            want = (PK.PLAIN[which](curve, *args[1:]) if kind == "point"
+                    else PK.PLAIN[kind](curve, *args))
             torch.cuda.synchronize()
             row["plain_ms"] = (time.perf_counter() - t0) * 1e3
             row["main"] = True
@@ -1005,26 +1101,50 @@ def time_recorded(recorder, max_err) -> dict:
         reps = max(1, min(200, int(20 / max(once, 1e-3))))
         row["ms"] = graph_ms(lambda: fn(curve, *args), reps)
         row["call_ms"] = cuda_ms(lambda: fn(curve, *args), reps)
+        if main and kind == "point":
+            row["point_groups_ms"] = point_groups_ms(curve, *args[1:])
         rows[kind].append(row)
         checked = "the limb reference" + (" and the plain version" if main else "")
         log(f"  {which} {curve_name} {tuple(shape)}: bit-equal to {checked}; "
             f"{row['ms']:.6f} ms on the device, {row['call_ms']:.6f} ms a call, bound "
             f"{row['bound_ms']:.6f} ms ({row['bound_by']})"
-            + (f", plain {row['plain_ms']:.3f} ms" if main else ""))
-    rows["point"] += dense_merges(recorder, max_err)
-    rows["point"] += horner_doublings(recorder, max_err)
-    for kind, (which, curve_name, shape) in MAIN_SHAPES.items():
+            + (f", plain {row['plain_ms']:.3f} ms" if main else "")
+            + (f"; by threads a lane {row['point_groups_ms']}" if "point_groups_ms" in row
+               else ""))
+    for kind, key in main_shapes.items():
         if not any(r.get("main") for r in rows[kind]):
-            raise AssertionError(f"the proof made no {which} call on {curve_name} at {shape}")
+            raise AssertionError(f"no {key[0]} call on {key[1]} at {key[2:]} was recorded")
     return rows
+
+
+def point_groups_ms(curve, p, q) -> dict:
+    """The point addition's device time on p, q with the kernel built for 1,
+    2 and 4 threads a lane (`point_kernels.POINT_GROUPS`), in turns 1, 2, 4,
+    4, 2, 1 on the same card; each the mean of its two turns, in ms. Each
+    build is held bit for bit against the curve's own build first."""
+    from manta_tpu_torch.ops.kernels import point_kernels as PK
+
+    want = PK.fused_add(curve, p, q)
+    for g in PK.POINT_GROUPS:
+        err = _max_err(PK._point_op(curve, "add", p, q, point_group=g), want)
+        if err:
+            raise AssertionError(f"add {curve.name}, {g} threads a lane, != the curve's build: "
+                                 f"max |diff| {err}")
+    times = {g: [] for g in PK.POINT_GROUPS}
+    for g in (*PK.POINT_GROUPS, *reversed(PK.POINT_GROUPS)):
+        times[g].append(graph_ms(lambda: PK._point_op(curve, "add", p, q, point_group=g), 20))
+    return {str(g): sum(t) / len(t) for g, t in times.items()}
 
 
 def dense_merges(recorder, max_err) -> list:
     """The dense point-op addition of the bucket merge that the merge kernel
     replaced (two a MSM before it: buckets + B1, then + B2), on each
     recorded merge call's buckets and its level-1 partials spread over the
-    buckets: held against the limb reference (and at its main shape the
-    plain version) and timed, as a yardstick for the merge."""
+    buckets: held against the limb reference (and at the point op's
+    yardstick shape the plain version) and timed, also with the kernel built
+    for 1, 2 and 4 threads a lane; and those builds on the buckets added to
+    themselves one lane over, where every lane is a generic addition (the
+    partials of the dense merge are infinity on all but its run ends)."""
     from manta_tpu_torch.ops import curve as C
     from manta_tpu_torch.ops.kernels import point_kernels as PK
 
@@ -1042,12 +1162,12 @@ def dense_merges(recorder, max_err) -> list:
         err = _max_err(got, C.curve_ops_for(curve, "limb").add(a, b1))
         row = {"op": "add", "curve": curve_name, "shape": list(a.x.shape),
                "path": "the dense bucket merge's addition that the merge kernel replaced"}
-        if MAIN_SHAPES["point"] == ("add", curve_name, tuple(a.x.shape)):
+        if POINT_YARDSTICK == ("add", curve_name, tuple(a.x.shape)):
             t0 = time.perf_counter()
             want = PK.plain_add(curve, a, b1)
             torch.cuda.synchronize()
             row["plain_ms"] = (time.perf_counter() - t0) * 1e3
-            row["main"] = True
+            row["yardstick"] = True
             err = max(err, _max_err(got, want))
         row["max_abs_err"] = err
         max_err["point"] = max(max_err["point"], err)
@@ -1057,11 +1177,17 @@ def dense_merges(recorder, max_err) -> list:
         row["ms"] = graph_ms(lambda: PK.fused_add(curve, a, b1), 20)
         row["call_ms"] = cuda_ms(lambda: PK.fused_add(curve, a, b1), 20)
         row["bound_ms"], row["bound_by"] = point_bound_ms("add", curve, ("add", a, b1))
+        row["point_groups_ms"] = point_groups_ms(curve, a, b1)
+        other = C.JacobianPoint(*(torch.roll(c, 1, -1) for c in a))
+        row["point_groups_generic_ms"] = point_groups_ms(curve, a, other)
         rows.append(row)
         log(f"  add {curve_name} {tuple(a.x.shape)} (the dense bucket merge's addition the "
             f"merge kernel replaced): bit-equal to the reference; {row['ms']:.6f} ms on the "
             f"device, {row['call_ms']:.6f} ms a call, bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']})")
+            f"({row['bound_by']}); by threads a lane {row['point_groups_ms']}, on generic "
+            f"lanes {row['point_groups_generic_ms']}")
+    if not any(r.get("yardstick") for r in rows):
+        raise AssertionError(f"the proof made no merge at the yardstick shape {POINT_YARDSTICK}")
     return rows
 
 
@@ -1138,37 +1264,32 @@ def rns_bound_ms(kind, curve, args):
         words = 3 * init.x.numel() + 3 * addends.x.numel() + 3 * init.x.numel()
         ops = lanes * steps * (doublings * RNS_PRODUCTS["double"][g]
                                + RNS_PRODUCTS["add"][g]) * per
-    elif kind == "columns":  # args: (px, py, qinf, head)
-        px, _, qinf, head = args
-        steps, lanes = head.shape
-        words = 2 * px.numel() + 2 * head.numel() + 3 * steps * comps * spec.kt * lanes
-        ops = RNS_PRODUCTS["madd"][g] * int((~head.bool()).sum()) * per
-    else:  # buckets: (px, py, qinf, head, slot, num_slots)
+    else:  # buckets, hybrid: (px, py, qinf, head, slot, num_slots)
         px, _, qinf, head, slot, _ = args
         steps, lanes = head.shape
         ends = int((slot >= 0).sum())
-        # the limb points and three masks read; the run ends and the last step written
+        # the points and three masks read; the run ends and the last step written
         words = 2 * px.numel() + 3 * head.numel() + 3 * comps * spec.kt * (ends + lanes)
         ops = RNS_PRODUCTS["madd"][g] * int((~head.bool()).sum()) * per
-        # limb sums and one conversion product per coordinate component
-        L = curve.field.num_limbs
-        ops += steps * lanes * 2 * comps * (2 * L * spec.kt + per)
+        if kind == "hybrid":  # limb sums and one conversion product per component
+            L = curve.field.num_limbs
+            ops += steps * lanes * 2 * comps * (2 * L * spec.kt + per)
     t_bytes = words * 4 / HBM_BYTES_PER_S
     t_ops = ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 # the RNS kernel wrappers the recorder wraps, by kind
-RNS_WRAPPERS = {"rns_accumulate_columns": "columns", "hybrid_accumulate_buckets": "buckets",
+RNS_WRAPPERS = {"rns_accumulate_buckets": "buckets", "hybrid_accumulate_buckets": "hybrid",
                 "rns_double_add": "combine"}
 
 # the shape of each RNS kernel that its `kernels` entry reports from the
 # rns_hybrid proof: the G1 bucket merge of MSM A, its hybrid bucket column and
-# its Horner chain (19 windows after the first, 13 doublings each; the column
-# kernel's is the entry point's largest G1 column, phase 10)
+# its Horner chain (19 windows after the first, 13 doublings each; the RNS
+# bucket column's is the entry point's largest G1 call, phase 10)
 RNS_MAIN_SHAPES = {
     "point": ("add", "bn254_g1", (51, 20, 4097)),
-    "buckets": ("buckets", "bn254_g1", (128, 16, 10240)),
+    "hybrid": ("hybrid", "bn254_g1", (128, 16, 10240)),
     "combine": ("combine", "bn254_g1", (19, 51, 1), 13, True),
 }
 
@@ -1189,7 +1310,7 @@ def time_recorded_rns(recorder, max_err, main_shapes, path) -> dict:
     the `kernels` line reports."""
     from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
-    rows = {"point": [], "columns": [], "buckets": [], "combine": []}
+    rows = {"point": [], "buckets": [], "hybrid": [], "combine": []}
     for key, (fn, curve, args) in sorted(recorder.calls.items(), key=lambda kv: kv[0]):
         which, curve_name, shape = key[:3]
         kind = "point" if which in RNS_PRODUCTS else which
@@ -1223,39 +1344,32 @@ def time_recorded_rns(recorder, max_err, main_shapes, path) -> dict:
     return rows
 
 
-def columns_on_hybrid_points(recorder, max_err) -> dict:
-    """The column kernel at the hybrid bucket column's reported shape, on the
-    same points converted to RNS: its stream's run ends held against the
-    hybrid bucket column's buckets and last step, the stream against its own
-    plain version; timed."""
+def buckets_on_hybrid_points(recorder, max_err) -> dict:
+    """The RNS bucket column (B7) at the hybrid bucket column's reported
+    shape, on the same points converted to RNS: its buckets and last step
+    held against the hybrid bucket column's there and against its own plain
+    version; timed."""
     from manta_tpu_torch.ops.kernels import rns_kernels as RK
 
-    fn, curve, args = recorder.calls[RNS_MAIN_SHAPES["buckets"]]
+    fn, curve, args = recorder.calls[RNS_MAIN_SHAPES["hybrid"]]
     px, py, qinf, head, slot, num_slots = args
-    ops = RK._plain_curve(curve).ops
-
-    def to_rns(stream):  # (K, L, R) limbs -> (K, Kt, R) residues
-        return ops.from_limbs(stream.movedim(1, 0)).movedim(0, 1).contiguous()
-
-    cargs = (to_rns(px), to_rns(py), qinf, head)
-    stream = RK.rns_accumulate_columns(curve, *cargs)
-    got = _coords(stream)
+    bargs = (to_rns(curve, px), to_rns(curve, py), qinf, head, slot, num_slots)
+    got = _coords(RK.rns_accumulate_buckets(curve, *bargs))
     hybrid = _coords(fn(curve, *args))
     t0 = time.perf_counter()
-    want = _coords(RK.plain_rns_accumulate_columns(curve, *cargs))
+    want = _coords(RK.plain_rns_accumulate_buckets(curve, *bargs))
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    picked = RK.pick_run_ends(curve, stream, slot, num_slots)
-    err = max(_max_err(got, want), _max_err(_coords(picked), hybrid))
-    max_err["columns"] = max(max_err["columns"], err)
+    err = max(_max_err(got, want), _max_err(got, hybrid))
+    max_err["buckets"] = max(max_err["buckets"], err)
     if err:
-        raise AssertionError(f"RNS column kernel at {tuple(cargs[0].shape)}: != plain version "
+        raise AssertionError(f"RNS bucket column at {tuple(bargs[0].shape)}: != plain version "
                              f"or hybrid bucket column: max |diff| {err}")
-    row = {"op": "columns", "curve": curve.name, "shape": list(cargs[0].shape),
+    row = {"op": "buckets", "curve": curve.name, "shape": list(bargs[0].shape),
            "path": "the hybrid column's points in RNS", "max_abs_err": err, "plain_ms": plain_ms}
-    _time_row(lambda: RK.rns_accumulate_columns(curve, *cargs), row, "columns", curve, cargs)
-    log(f"  RNS columns {curve.name} {tuple(cargs[0].shape)} (the hybrid column's points in "
-        f"RNS): bit-equal to the plain version, its run ends to the hybrid bucket column; "
+    _time_row(lambda: RK.rns_accumulate_buckets(curve, *bargs), row, "buckets", curve, bargs)
+    log(f"  RNS buckets {curve.name} {tuple(bargs[0].shape)} (the hybrid column's points in "
+        f"RNS): bit-equal to the plain version and to the hybrid bucket column's buckets; "
         f"{row['ms']:.6f} ms on the device, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
         f"plain {plain_ms:.3f} ms")
     return row
@@ -1321,14 +1435,16 @@ def main() -> int:
     log("== phase 3: field kernel vs plain version")
     max_err, timings = check_kernels()
 
-    log("== phase 4: point, bucket-column, fold, combine and merge kernels vs plain versions")
+    log("== phase 4: point, bucket-column, fold, combine, merge and chain kernels vs plain "
+        "versions")
     point_err = check_point_kernels()
 
-    log("== phase 5: RNS point, column, hybrid bucket column and combine kernels vs plain versions")
+    log("== phase 5: RNS point, bucket-column (RNS and limb points in) and combine kernels vs "
+        "plain versions")
     rns_err = check_rns_kernels()
 
     log("== phase 6: MSMs")
-    off_fold = check_msms()
+    off_fold, off_fold_calls = check_msms()
 
     log("== phase 7: production PrivateTransfer proofs (the meta's backend)")
     counts, recorder = prove_production(record=True)
@@ -1338,14 +1454,31 @@ def main() -> int:
             if counts[group][op] <= 0:
                 raise AssertionError(f"the main path launched no {group} {op} kernel")
     # two proofs of four MSMs: 1 bucket column, 4 folds, 1 merge and 1
-    # combine an MSM; no point-op launch (the merge kernel adds the bucket
-    # batches)
-    want = {"add": 0, "madd": 0, "double": 0, "buckets": 8, "fold": 32, "combine": 8, "merge": 8}
+    # combine an MSM; no point-op or chain launch (the merge kernel adds the
+    # bucket batches, the combine runs Horner's rule)
+    want = {"add": 0, "madd": 0, "double": 0, "buckets": 8, "fold": 32, "combine": 8, "merge": 8,
+            "chain": 0}
     if counts["point"] != want:
         raise AssertionError(f"unexpected point-kernel launches over two proofs: {counts['point']}")
     log("  the point kernels at the shapes of the first proof: checked, then timed")
-    point_rows = time_recorded(recorder, point_err)
+    point_rows = time_recorded(recorder, point_err, MAIN_SHAPES)
+    point_rows["point"] += dense_merges(recorder, point_err)
+    point_rows["point"] += horner_doublings(recorder, point_err)
     del recorder
+    log("  the point-op and chain kernels at the shapes of phase 6's MSM off the fold path: "
+        "checked, then timed")
+    # its bucket column is the production proofs' kernel, held and timed there
+    off_fold_calls.calls = {key: call for key, call in off_fold_calls.calls.items()
+                            if key[0] in PRODUCTS or key[0] == "chain"}
+    largest_add = max((key for key in off_fold_calls.calls if key[:2] == ("add", "bn254_g1")),
+                      key=lambda key: math.prod(key[2]))
+    off_rows = time_recorded(off_fold_calls, point_err, {"point": largest_add,
+                                                         "chain": CHAIN_MAIN})
+    del off_fold_calls
+    for kind in ("point", "chain"):
+        for row in off_rows[kind]:
+            row["path"] = "fused MSM off the fold path, 4096 points (phase 6)"
+        point_rows[kind] += off_rows[kind]
 
     log("== phase 8: production proof (limb backend)")
     limb_counts, _ = prove_production("limb", proofs=((0, (7, 9)),))
@@ -1353,13 +1486,13 @@ def main() -> int:
         if count <= 0:
             raise AssertionError(f"the limb path launched no {op} kernel")
 
-    log("== phase 9: production PrivateTransfer proofs on rns_hybrid (this slice's main path)")
+    log("== phase 9: production PrivateTransfer proofs on rns_hybrid")
     rns_counts, recorder = prove_production("rns_hybrid", record=True)
     # two proofs of four MSMs: 1 hybrid bucket column and 3 combines (Horner,
-    # the two weighted reductions' doubling runs) an MSM; no column stream and
-    # no single-lane doubling; the point op adds the trailing partials, the
-    # buckets and their reductions
-    want = {"madd": 0, "double": 0, "columns": 0, "buckets": 8, "combine": 24, "is_zero": 0}
+    # the two weighted reductions' doubling runs) an MSM; no bucket column of
+    # RNS points and no single-lane doubling; the point op adds the trailing
+    # partials, the buckets and their reductions
+    want = {"madd": 0, "double": 0, "buckets": 0, "hybrid": 8, "combine": 24, "is_zero": 0}
     got = {op: rns_counts["rns"][op] for op in want}
     if got != want or rns_counts["rns"]["add"] <= 0:
         raise AssertionError(f"unexpected RNS-kernel launches over two rns_hybrid proofs: "
@@ -1367,21 +1500,21 @@ def main() -> int:
     log("  the RNS kernels at the shapes of the first proof: checked, then timed")
     rns_rows = time_recorded_rns(recorder, rns_err, RNS_MAIN_SHAPES,
                                  "production proof (rns_hybrid)")
-    rns_rows["columns"].append(columns_on_hybrid_points(recorder, rns_err))
+    rns_rows["buckets"].append(buckets_on_hybrid_points(recorder, rns_err))
     rns_rows["point"] += rns_horner_doublings(recorder, rns_err)
     del recorder
 
     log("== phase 10: torch_entry.dryrun() (rns_fused)")
     entry_counts, recorder = entry_dryrun()
-    for op in ("add", "columns", "combine"):
+    for op in ("add", "buckets", "combine"):
         if entry_counts["rns"][op] <= 0:
             raise AssertionError(f"the entry point launched no RNS {op} kernel")
-    if entry_counts["rns"]["double"] or entry_counts["rns"]["buckets"]:
+    if entry_counts["rns"]["double"] or entry_counts["rns"]["hybrid"]:
         raise AssertionError(f"the entry point's rns_fused proof launched {entry_counts['rns']}")
     log("  the RNS kernels at the shapes of the entry point's proof: checked, then timed")
-    g1_columns = max((key for key in recorder.calls if key[:2] == ("columns", "bn254_g1")),
+    g1_buckets = max((key for key in recorder.calls if key[:2] == ("buckets", "bn254_g1")),
                      key=lambda key: math.prod(key[2]))
-    entry_rows = time_recorded_rns(recorder, rns_err, {"columns": g1_columns},
+    entry_rows = time_recorded_rns(recorder, rns_err, {"buckets": g1_buckets},
                                    "torch_entry.dryrun (rns_fused)")
     del recorder
     for kind, rows in entry_rows.items():
@@ -1411,26 +1544,29 @@ def main() -> int:
             "shapes": timings[which],
             "build": build["field"],
         })
-    # the point op no longer runs on the fold path: its launches are those of
-    # the fused MSM off the fold path (phase 6)
+    # the point op and the chain kernel run off the fold path only: their
+    # launches are those of the fused MSM off the fold path (phase 6)
     point_launches = {
         "point": {op: off_fold[op] for op in ("add", "madd", "double")},
+        "chain": off_fold["chain"],
         **{kind: counts["point"][kind] for kind in ("buckets", "fold", "combine", "merge")},
     }
     for kind, name in (("point", "point_kernels.point_op"),
                        ("buckets", "point_kernels.accumulate_buckets"),
                        ("fold", "point_kernels.fold_columns"),
                        ("combine", "point_kernels.combine_windows"),
-                       ("merge", "point_kernels.merge_buckets")):
+                       ("merge", "point_kernels.merge_buckets"),
+                       ("chain", "point_kernels.fused_double_add")):
         main_row = next(r for r in point_rows[kind] if r.get("main"))
         launches = point_launches[kind]
+        off = kind in ("point", "chain")
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": POINT_SOURCE,
             "replaces": POINT_REPLACES[kind],
             "launches": sum(launches.values()) if kind == "point" else launches,
-            "path": ("fused MSM off the fold path, 4096 points (phase 6)" if kind == "point"
+            "path": ("fused MSM off the fold path, 4096 points (phase 6)" if off
                      else "production proofs (fused)"),
             "max_abs_err": point_err[kind],
             "ms": main_row["ms"],
@@ -1442,19 +1578,24 @@ def main() -> int:
             "curve": main_row["curve"],
             "op": main_row["op"],
             "shape": main_row["shape"],
-            **({"launches_by_op": launches} if kind == "point" else {}),
+            **({"launches_by_op": launches,
+                "point_groups_ms": main_row["point_groups_ms"],
+                # the shape it was reported at before the chain kernel, for comparison
+                "yardstick": next(r for r in point_rows[kind] if r.get("yardstick"))}
+               if kind == "point" else {}),
             "shapes": point_rows[kind],
-            "build": build[kind],
+            "build": {**build[kind], **({"point_groups": build["point_groups"]}
+                                        if kind == "point" else {})},
         })
     rns_launches = {
         "point": {op: rns_counts["rns"][op] for op in ("add", "madd", "double")},
-        "columns": entry_counts["rns"]["columns"],
-        "buckets": rns_counts["rns"]["buckets"],
+        "buckets": entry_counts["rns"]["buckets"],
+        "hybrid": rns_counts["rns"]["hybrid"],
         "combine": rns_counts["rns"]["combine"],
     }
     for kind, name in (("point", "rns_kernels.rns_point_op"),
-                       ("columns", "rns_kernels.rns_accumulate_columns"),
-                       ("buckets", "rns_kernels.hybrid_accumulate_buckets"),
+                       ("buckets", "rns_kernels.rns_accumulate_buckets"),
+                       ("hybrid", "rns_kernels.hybrid_accumulate_buckets"),
                        ("combine", "rns_kernels.rns_double_add")):
         main_row = next(r for r in rns_rows[kind] if r.get("main"))
         launches = rns_launches[kind]
@@ -1466,7 +1607,7 @@ def main() -> int:
             # B6, B8 and the combine on the rns_hybrid proofs; B7 on the entry
             # point's rns_fused proof
             "launches": sum(launches.values()) if kind == "point" else launches,
-            "path": "torch_entry.dryrun (rns_fused)" if kind == "columns" else
+            "path": "torch_entry.dryrun (rns_fused)" if kind == "buckets" else
                     "production proofs (rns_hybrid)",
             "max_abs_err": rns_err[kind],
             "ms": main_row["ms"],

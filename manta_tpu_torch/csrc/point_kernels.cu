@@ -1,5 +1,5 @@
 // Whole-formula elliptic-curve kernels for Hopper (sm_90a): point op, bucket
-// column, fold, window combine, bucket merge.
+// column, fold, window combine, bucket merge, chain.
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // `manta_tpu/ops/pallas/point_kernels.py`:
@@ -20,11 +20,14 @@
 //     (`manta_tpu/ops/msm.py` reads the same rows).
 // The combine kernel takes over the point-op launches of the MSM's last
 // steps on the fold path (`_weighted_fold_fused`'s window sums and the Horner
-// loop over windows of `msm`, about 270 single-lane launches an MSM), and the
+// loop over windows of `msm`, about 270 single-lane launches an MSM), the
 // merge kernel the two dense point-op additions that add the fold's trailing
 // partials into the buckets (`buckets + b1 + b2` over W·num_buckets lanes, of
-// which the partials hit at most W·R + W·128): the TPU program runs both as
-// `_point_op` calls too.
+// which the partials hit at most W·R + W·128), and the chain kernel (public
+// `fused_double_add`) the MSM's chains of doublings and an addition off the
+// fold path (Horner's rule and the weighted reductions' two doubling runs,
+// about 265 single-lane launches an MSM, each costing the host 0.07-0.08 ms
+// to issue): the TPU program runs all three as `_point_op` calls too.
 //
 // What it computes is bit for bit what the plain versions compute: the field
 // ops are `FieldOps<F>` (field_ops.cuh), and every formula of point_ops.cuh
@@ -47,7 +50,18 @@
 // (the TPU kernels' padding to 128 lanes is not needed). The edge dispatch is
 // a branch of the thread or group: the doubling is computed only where a
 // lane needs it, and the host never waits for the device.
-//   - Point op: one thread per lane.
+//   - Point op: G1 on a group of 2 threads a lane (`point_group`), each
+//     formula's rounds of products spread over the group as in the bucket
+//     column; G2 on one thread a lane (`point_lane`). Timed at 20·4097 lanes
+//     (H100 80GB HBM3, 700 W): the G1 addition of the MSM off the fold path
+//     took 0.117 ms on one thread a lane, 0.077 on 2 and 0.100 on 4; on
+//     generic lanes the three were 0.078, 0.078 and 0.095 ms. The G2
+//     addition took 0.499 ms on one thread a lane, 0.682 on 2 and 0.648 on 4
+//     on generic lanes: at that lane count one thread a lane already fills
+//     the card, and a group repeats the formula's Fq2 additions in every
+//     thread and shuffles each 8-word product to all of them, which costs
+//     more than it hides. `-DMANTA_POINT_GROUP=` builds the point op with
+//     another G (1, 2 or 4) for timing the choices.
 //   - Bucket column: one thread per lane ran 128 dependent mixed additions
 //     over the production prover's 10240 lanes (20 windows of 512): 320
 //     warps on 132 SMs, 2-3 warps an SM, all latency (1.83 ms for G1,
@@ -94,9 +108,12 @@
 //     the buckets no partial hits only have their infinity made canonical,
 //     as the dense additions would (blocks after the groups' blocks, one
 //     thread a bucket). The wrapper builds the inverse index slot -> entry.
-//   - The fold, combine, bucket column and merge kernels call each formula
-//     out of line (`add_to`, `double_to`, `group_*_to`), so each object
-//     compiles it once.
+//   - Chain: one warp a chain (`double_add_warp`), each formula spread over
+//     its 32 lanes, as the combine's Horner chain (`double_add_chain`, shared
+//     by both): one launch for all chains of a call.
+//   - The point op, fold, combine, chain, bucket column and merge kernels
+//     call each formula out of line (`add_to`, `double_to`, `group_*_to`), so
+//     each object compiles it once.
 //
 // Bound on the H100 (3.35 TB/s HBM; 67 T 32-bit multiply-adds/s, the card's
 // non-tensor rate, as the ceiling for integer work). A BN254 G1 mixed add is
@@ -118,9 +135,10 @@
 //
 // Built with `-DMANTA_CURVE=` 0 BN254 G1, 1 BN254 G2, 2 BLS12-381 G1,
 // 3 BLS12-381 G2 and `-DMANTA_KERNEL=` 0 add and merge, 1 madd, 2 double,
-// 3 bucket column, 4 fold, 5 combine: one object per kernel and curve (the
-// merge kernel shares the add kernel's), compiled in parallel, and one
-// shared library per curve that links its six objects.
+// 3 bucket column, 4 fold, 5 combine and chain: one object per kernel and
+// curve (the merge kernel shares the add kernel's, the chain kernel the
+// combine's), compiled in parallel, and one shared library per curve that
+// links its six objects.
 
 #include "point_ops.cuh"
 
@@ -128,9 +146,9 @@ namespace {
 
 using namespace manta;
 
+// The point-op, bucket column and merge kernels: 4 warps a block, a group of
+// threads a lane (kPointGroup, kGroupThreads).
 constexpr int kPointThreads = 128;
-// The bucket column and merge kernels: 4 warps a block, a group of
-// kGroupThreads threads a lane.
 constexpr int kBucketThreads = 128;
 // One warp per block of the fold kernel, so that a lane's threads share a warp.
 constexpr int kFoldThreads = 32;
@@ -139,16 +157,24 @@ constexpr int kFoldThreads = 32;
 // 2·W <= 128).
 constexpr int kCombineThreads = 256;
 constexpr int kMaxWindows = 64;
+// The chain kernel: 4 warps a block, a warp a chain.
+constexpr int kChainThreads = 128;
 
-template <class C, int WHICH>
+// G threads a lane (G = 1: one thread, the formulas inline).
+template <class C, int WHICH, int G>
 __global__ void __launch_bounds__(kPointThreads)
     point_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                  const int32_t* __restrict__ pz, const int32_t* __restrict__ qx,
                  const int32_t* __restrict__ qy, const int32_t* __restrict__ qz,
                  int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
                  int64_t n) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kPointThreads + threadIdx.x;
-  if (j < n) point_lane<C, WHICH>(px, py, pz, qx, qy, qz, ox, oy, oz, n, j);
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * (kPointThreads / G) + threadIdx.x / G;
+  if constexpr (G == 1) {
+    if (j < n) point_lane<C, WHICH>(px, py, pz, qx, qy, qz, ox, oy, oz, n, j);
+  } else {
+    point_group<C, WHICH, G>(px, py, pz, qx, qy, qz, ox, oy, oz, n, j,
+                             Group<G>(threadIdx.x % 32));
+  }
 }
 
 template <class C, int G>
@@ -211,6 +237,18 @@ __global__ void __launch_bounds__(kCombineThreads)
                    threadIdx.x, kCombineThreads);
 }
 
+template <class C>
+__global__ void __launch_bounds__(kChainThreads)
+    chain_kernel(const int32_t* __restrict__ ix, const int32_t* __restrict__ iy,
+                 const int32_t* __restrict__ iz, const int32_t* __restrict__ wx,
+                 const int32_t* __restrict__ wy, const int32_t* __restrict__ wz,
+                 int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+                 int64_t n, int steps, int doublings, int chain_first) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * (kChainThreads / 32) + threadIdx.x / 32;
+  double_add_warp<C>(ix, iy, iz, wx, wy, wz, ox, oy, oz, n, steps, doublings, chain_first != 0, j,
+                     Group<32>(threadIdx.x % 32));
+}
+
 #ifndef MANTA_CURVE
 #error "build with -DMANTA_CURVE=0..3 (BN254 G1, BN254 G2, BLS12-381 G1, BLS12-381 G2)"
 #elif MANTA_CURVE == 0
@@ -228,6 +266,14 @@ using Curve = Ext<Bls12381Fq>;
 // threads of a lane in the bucket column and the merge: 2 for G1, 4 for G2
 // (the fastest of 1 to 16 for the bucket column on the card)
 constexpr int kGroupThreads = WarpProducts<Curve>::kMul == 1 ? 2 : 4;
+// threads of a lane in the point op: 2 for G1, 1 for G2 (the fastest of 1, 2
+// and 4 on the card at the bucket-merge shape, on generic lanes too; see the
+// header), unless built with another
+#ifdef MANTA_POINT_GROUP
+constexpr int kPointGroup = MANTA_POINT_GROUP;
+#else
+constexpr int kPointGroup = WarpProducts<Curve>::kMul == 1 ? 2 : 1;
+#endif
 
 [[maybe_unused]] inline dim3 grid_for(int64_t lanes, int threads) {
   return dim3(static_cast<unsigned>((lanes + threads - 1) / threads));
@@ -242,9 +288,10 @@ int launch_point(const void* px, const void* py, const void* pz, const void* qx,
                  const void* qy, const void* qz, void* ox, void* oy, void* oz, long long n,
                  void* stream) {
   if (n <= 0) return 0;
-  if (too_many_blocks(n, kPointThreads)) return static_cast<int>(cudaErrorInvalidConfiguration);
-  point_kernel<Curve, WHICH><<<grid_for(n, kPointThreads), kPointThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  constexpr int per_block = kPointThreads / kPointGroup;
+  if (too_many_blocks(n, per_block)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  point_kernel<Curve, WHICH, kPointGroup><<<grid_for(n, per_block), kPointThreads, 0,
+                                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(px), static_cast<const int32_t*>(py),
       static_cast<const int32_t*>(pz), static_cast<const int32_t*>(qx),
       static_cast<const int32_t*>(qy), static_cast<const int32_t*>(qz),
@@ -258,7 +305,7 @@ int launch_point(const void* px, const void* py, const void* pz, const void* qx,
 // parallel (`ops/kernels/build.py`); the curve's shared library links all
 // six. Each launcher returns the launch's cudaError_t (0 on success).
 #ifndef MANTA_KERNEL
-#error "build with -DMANTA_KERNEL=0..5 (add and merge, madd, double, bucket column, fold, combine)"
+#error "build with -DMANTA_KERNEL=0..5 (add and merge, madd, double, bucket column, fold, combine and chain)"
 #elif MANTA_KERNEL <= 2
 // Every coordinate a contiguous (*E, n) int32 array; double ignores q.
 #define MANTA_POINT_LAUNCHER(name, which)                                                    \
@@ -354,6 +401,25 @@ extern "C" int manta_combine_windows(const void* ax, const void* ay, const void*
       static_cast<const int32_t*>(by), static_cast<const int32_t*>(bz),
       static_cast<int32_t*>(ox), static_cast<int32_t*>(oy), static_cast<int32_t*>(oz), windows,
       doublings, window_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+// init ix, iy, iz and out ox, oy, oz: (*E, n) int32; addends wx, wy, wz:
+// (steps, *E, n). See `double_add_warp`.
+extern "C" int manta_double_add(const void* ix, const void* iy, const void* iz, const void* wx,
+                                const void* wy, const void* wz, void* ox, void* oy, void* oz,
+                                long long n, int steps, int doublings, int chain_first,
+                                void* stream) {
+  if (n <= 0) return 0;
+  if (steps < 0 || doublings < 0) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int per_block = kChainThreads / 32;
+  if (too_many_blocks(n, per_block)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  chain_kernel<Curve><<<grid_for(n, per_block), kChainThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ix), static_cast<const int32_t*>(iy),
+      static_cast<const int32_t*>(iz), static_cast<const int32_t*>(wx),
+      static_cast<const int32_t*>(wy), static_cast<const int32_t*>(wz),
+      static_cast<int32_t*>(ox), static_cast<int32_t*>(oy), static_cast<int32_t*>(oz), n, steps,
+      doublings, chain_first);
   return static_cast<int>(cudaGetLastError());
 }
 #else

@@ -4,10 +4,12 @@
 // (CurveOps.double / add / madd with the edge dispatch of `_add_dispatch`),
 // each in the same sequence of field ops, so the lazy [0, 2p) values agree
 // bit for bit with the plain versions, and the body of each kernel: one lane
-// (`point_lane`), the threads of a lane's group (`bucket_column_group`,
-// `fold_group`, `merge_group`) or one block (`combine_block`). The bucket column,
-// merge and combine run their formulas spread over a group of threads of a
-// warp (`group_madd_to`, `group_add_to`, `group_double_to`). Nothing here
+// (`point_lane`), the threads of a lane's group (`point_group`,
+// `bucket_column_group`, `fold_group`, `merge_group`), one warp
+// (`double_add_warp`) or one block (`combine_block`). The point op, bucket
+// column, merge, chain and combine run their formulas spread over a group of
+// threads of a warp (`group_madd_to`, `group_add_to`, `group_double_to`;
+// `double_add_chain`). Nothing here
 // launches: a host C++ harness can include this header (with the CUDA
 // qualifiers, the warp shuffles and the block barrier defined for the CPU)
 // and run the bodies there.
@@ -750,6 +752,31 @@ __device__ __forceinline__ void store_spread(int32_t* __restrict__ x, int32_t* _
   }
 }
 
+// One group of the point-op kernel: the G threads that run lane j of the
+// (*E, n) arrays, one add (`group_add_to`), mixed add (`group_madd_to`) or
+// double (`group_double_to`); the edge dispatch is a branch of the group, so
+// the doubling runs only where a lane needs it. Each thread loads the
+// operands itself.
+template <class C, int WHICH, int G>
+__device__ __forceinline__ void point_group(
+    const int32_t* __restrict__ px, const int32_t* __restrict__ py,
+    const int32_t* __restrict__ pz, const int32_t* __restrict__ qx,
+    const int32_t* __restrict__ qy, const int32_t* __restrict__ qz, int32_t* __restrict__ ox,
+    int32_t* __restrict__ oy, int32_t* __restrict__ oz, int64_t n, int64_t j,
+    const Group<G>& g) {
+  if (j >= n) return;  // the whole group: its threads share j
+  const Pt<C> p = load_point<C>(px, py, pz, n, j);
+  Pt<C> r;
+  if constexpr (WHICH == kDouble) {
+    group_double_to<C, G>(r, p, g);
+  } else if constexpr (WHICH == kAdd) {
+    group_add_to<C, G>(r, p, load_point<C>(qx, qy, qz, n, j), g);
+  } else {
+    group_madd_to<C, G>(r, p, load_point<C>(qx, qy, qz, n, j), g);
+  }
+  store_spread<C, G>(ox, oy, oz, n, j, r, g);
+}
+
 // One group of the bucket-column kernel: the G threads (thread `rank` of
 // group `g`) that run lane j. px, py: (K, *E, R); qinf, head, slot: (K, R).
 // Per lane, for k < K: acc = q[k] if head[k] else madd(acc, q[k]) (q =
@@ -847,15 +874,55 @@ __device__ __forceinline__ void merge_untouched(int32_t* __restrict__ ax,
   }
 }
 
+// The chain of the MSM's last steps, spread over the 32 threads of a warp:
+// for each of `steps` addends w = addend(s), `doublings` doublings of acc,
+// then acc = add(acc, w) (chain_first) or add(w, acc); `msm.double_add_loop`
+// formula for formula. Every thread of the warp holds acc.
+template <class C, class Addend>
+__device__ __forceinline__ void double_add_chain(Pt<C>& acc, int steps, int doublings,
+                                                 bool chain_first, const Addend& addend,
+                                                 const Group<32>& warp) {
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll 1
+    for (int i = 0; i < doublings; ++i) group_double_to<C, 32>(acc, acc, warp);
+    const Pt<C> w = addend(s);
+    if (chain_first) {
+      group_add_to<C, 32>(acc, acc, w, warp);
+    } else {
+      group_add_to<C, 32>(acc, w, acc, warp);
+    }
+  }
+}
+
+// One warp of the chain kernel: lane j of init (*E, n) and of the addends
+// (steps, *E, n), its chain (`double_add_chain`) into out (*E, n).
+template <class C>
+__device__ __forceinline__ void double_add_warp(
+    const int32_t* __restrict__ ix, const int32_t* __restrict__ iy,
+    const int32_t* __restrict__ iz, const int32_t* __restrict__ wx,
+    const int32_t* __restrict__ wy, const int32_t* __restrict__ wz, int32_t* __restrict__ ox,
+    int32_t* __restrict__ oy, int32_t* __restrict__ oz, int64_t n, int steps, int doublings,
+    bool chain_first, int64_t j, const Group<32>& warp) {
+  if (j >= n) return;  // the whole warp
+  const int64_t step = C::kRows * n;
+  Pt<C> acc = load_point<C>(ix, iy, iz, n, j);
+  double_add_chain<C>(acc, steps, doublings, chain_first, [&](int s) {
+    const int64_t off = s * step;
+    return load_point<C>(wx + off, wy + off, wz + off, n, j);
+  }, warp);
+  store_spread<C, 32>(ox, oy, oz, n, j, acc, warp);
+}
+
 // The window combine of the MSM, one block of `threads` threads (whole
 // warps): the weighted fold's level-2 final rows A and B, (*E, 2W) each
 // (lanes [T | B] of `msm._weighted_fold_fused`), give per window
 // S_w = 2^doublings·(B[w] − A[w]) + A[W + w] (one warp per window, into
 // `sums`, shared memory), then warp 0 runs Horner's rule acc = S_{W−1};
-// acc = 2^window_bits·acc + S_w for w = W−2 .. 0 and writes acc, (*E, 1).
-// The formulas and their order are those of `msm.window_sums` and
-// `msm.horner`, each spread over the warp's 32 lanes (`group_add_to`,
-// `group_double_to`).
+// acc = 2^window_bits·acc + S_w for w = W−2 .. 0 (`double_add_chain`) and
+// writes acc, (*E, 1). The formulas and their order are those of
+// `msm.window_sums` and `msm.horner`, each spread over the warp's 32 lanes
+// (`group_add_to`, `group_double_to`).
 template <class C>
 __device__ __forceinline__ void combine_block(
     const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
@@ -880,12 +947,8 @@ __device__ __forceinline__ void combine_block(
   __syncthreads();
   if (t >= 32) return;
   Pt<C> acc = sums[windows - 1];
-#pragma unroll 1
-  for (int w = windows - 2; w >= 0; --w) {
-#pragma unroll 1
-    for (int i = 0; i < window_bits; ++i) group_double_to<C, 32>(acc, acc, lane);
-    group_add_to<C, 32>(acc, acc, sums[w], lane);
-  }
+  double_add_chain<C>(acc, windows - 1, window_bits, true,
+                      [&](int s) { return sums[windows - 2 - s]; }, lane);
   if (lane.rank == 0) store_point<C>(ox, oy, oz, 1, 0, acc);
 }
 

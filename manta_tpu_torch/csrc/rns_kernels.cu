@@ -1,22 +1,23 @@
-// RNS curve kernels for Hopper (sm_90a): point op, bucket column, hybrid
-// (limb-input) bucket column, and the combine of the MSM's last steps.
+// RNS curve kernels for Hopper (sm_90a): point op, bucket column (RNS or
+// 16-bit-limb points in), and the combine of the MSM's last steps.
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // `manta_tpu/ops/pallas/rns_kernels.py`:
 //   - `_rns_point_op` (public `RnsFusedCurveOps.add / madd / double`): one
 //     whole add, mixed add or double per lane through the bound-annotated
 //     formulas of `RnsCurveOps`, with the edge dispatch of `_add_dispatch`;
-//   - `_rns_column_call` (public `rns_accumulate_columns`): per lane, for
+//   - `_rns_column_call` (public `rns_accumulate_buckets`): per lane, for
 //     k < K, acc = q[k] if head[k] else madd(acc, q[k]), q = (x, y, 1) or
-//     infinity where qinf[k], the accumulator written after every step;
+//     infinity where qinf[k];
 //   - `_hybrid_column_call` (public `hybrid_accumulate_buckets`): the same
 //     loop with the points given as 16-bit Montgomery limbs, each step's q
 //     converted to RNS (`from_limbs`: the residues of the limb value, then
-//     one RNS product by M1²·2^(−16 L)). The TPU kernel writes the
-//     accumulator after every step, a (K, *E, R) stream of which the MSM
-//     keeps the run ends; this one writes it only at a run end, straight
-//     into its bucket (`slot[k]` = w·num_buckets + digit, or −1), and the
-//     last accumulator.
+//     one RNS product by M1²·2^(−16 L)).
+// Both TPU column kernels write the accumulator after every step, a
+// (K, *E, R) stream of which the MSM keeps the run ends (0.8–1.6 GB an MSM of
+// the production prover). The bucket column here writes it only at a run end,
+// straight into its bucket (`slot[k]` = w·num_buckets + digit, or −1), and
+// the last accumulator: one loop for both input forms (`bucket_block`).
 // The combine kernel (public `rns_double_add`) runs the chains of doublings
 // and additions that the TPU program runs as `_rns_point_op` launches, one
 // lane at a time: Horner's rule over the windows (c doublings and an
@@ -27,8 +28,8 @@
 //
 // The arithmetic is rns_ops.cuh (its header says why the residues are the
 // JAX kernels' bit for bit, and how the zero test replaces the 2^13-row
-// table). One block serves 8 lanes with one thread per channel; the column
-// kernels keep the accumulator in registers across the K steps, where the
+// table). One block serves 8 lanes with one thread per channel; the bucket
+// column keeps the accumulator in registers across the K steps, where the
 // TPU kernels carry it in VMEM scratch across a sequential grid axis. Any
 // lane count: the last block's missing lanes read zeros and store nothing
 // (the TPU kernels' padding to 128 or 512 lanes is not needed).
@@ -42,17 +43,20 @@
 // over 20 · 512 lanes (one G1 MSM of the production prover) reads the limb
 // points (168 MB) and writes the run ends and the last step (~6 MB), against
 // ~1.3 M mixed adds × 11 products × 4.4 k operations ≈ 6·10^10 operations,
-// 0.9 ms: bound by operations. Barriers pace these kernels: with two a
-// product they ran at 8–10 % of the bound. So the formulas run their products
-// in rounds (rns_ops.cuh), 11 barriers a mixed addition instead of ~29, and
-// the hybrid column converts the next step's point inside the current
-// step's first round, its limbs staged two steps ahead with cp.async.
+// 0.9 ms: bound by operations; with RNS points in (535 MB read) the same.
+// Barriers pace these kernels: with two a product they ran at 8–10 % of the
+// bound. So the formulas run their products in rounds (rns_ops.cuh), 11
+// barriers a mixed addition instead of ~29, and the bucket column stages the
+// step after next with cp.async while the current one computes (with limbs
+// in, it also converts the next step's point inside the current step's
+// first round).
 //
 // Shared memory grows with NB, the base products a round's pass holds (5 for
 // G1, the complete addition's first round; 12 for G2, a mixed addition's
 // first round with the hybrid column's conversion products, so a G2 complete
-// addition's 20-product first round runs in two passes): the blocks take it
-// as dynamic shared memory, above the static 48 KB on BLS12-381 G2.
+// addition's 20-product first round runs in two passes), and, in the bucket
+// column, with its staging buffers (`Staging`, after `Shared`): the blocks
+// take it as dynamic shared memory, above the static 48 KB on BLS12-381 G2.
 //
 // Occupancy. A block's phases alternate between its B1 and its B2 ∪ r
 // threads, and each waits on shared-memory loads, so a block alone leaves an
@@ -69,9 +73,9 @@
 //
 // Built with `-DMANTA_CURVE=` 0 BN254 G1, 1 BN254 G2, 2 BLS12-381 G1,
 // 3 BLS12-381 G2 and `-DMANTA_KERNEL=` 0 add, 1 madd, 2 double (with the
-// zero-test launcher), 3 column, 4 hybrid bucket column, 5 combine: one
-// object per kernel and curve, compiled in parallel, one shared library per
-// curve.
+// zero-test launcher), 3 bucket column (RNS in), 4 bucket column (limbs
+// in), 5 combine: one object per kernel and curve, compiled in parallel, one
+// shared library per curve.
 
 #include "rns_ops.cuh"
 
@@ -107,11 +111,21 @@ using O = Fq2Ops<D, NB>;
 
 using S = Shared<D, NB>;
 
-// The block's shared memory, dynamic (its size is sizeof(S)).
-__device__ __forceinline__ S& shared_block() {
+#if MANTA_KERNEL == 3 || MANTA_KERNEL == 4
+// the bucket column's staging buffers follow the block's `Shared`
+using Stage = Staging<D, O::kComps, MANTA_KERNEL == 4 ? kLimbs : kResidues>;
+constexpr size_t kSharedBytes = sizeof(S) + sizeof(Stage);
+#else
+constexpr size_t kSharedBytes = sizeof(S);
+#endif
+
+__device__ __forceinline__ unsigned char* shared_bytes() {
   extern __shared__ __align__(16) unsigned char smem[];
-  return *reinterpret_cast<S*>(smem);
+  return smem;
 }
+
+// The block's shared memory, dynamic (its size is kSharedBytes).
+__device__ __forceinline__ S& shared_block() { return *reinterpret_cast<S*>(shared_bytes()); }
 
 // only the kernel of this object (MANTA_KERNEL) is compiled into it
 #if MANTA_KERNEL <= 2
@@ -126,27 +140,25 @@ __global__ void __launch_bounds__(D::threads, kMinBlocks)
 }
 #endif
 
+#if MANTA_KERNEL == 3 || MANTA_KERNEL == 4
+// RNS residues in (3) or 16-bit limbs in (4): `bucket_block`
 #if MANTA_KERNEL == 3
-__global__ void __launch_bounds__(D::threads, kMinBlocks)
-    column_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ px,
-                  const int32_t* __restrict__ py, const int32_t* __restrict__ qinf,
-                  const int32_t* __restrict__ head, int32_t* __restrict__ ox,
-                  int32_t* __restrict__ oy, int32_t* __restrict__ oz, int steps, int64_t lanes) {
-  column_block<D, NB, O>(shared_block(), table, px, py, qinf, head, ox, oy, oz, steps, lanes);
-}
+#define MANTA_BUCKET_KERNEL rns_bucket_kernel
+#else
+#define MANTA_BUCKET_KERNEL hybrid_bucket_kernel
 #endif
-
-#if MANTA_KERNEL == 4
 __global__ void __launch_bounds__(D::threads, kMinBlocks)
-    hybrid_bucket_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ px,
-                         const int32_t* __restrict__ py, const int32_t* __restrict__ qinf,
-                         const int32_t* __restrict__ head, const int32_t* __restrict__ slot,
-                         int32_t* __restrict__ bx, int32_t* __restrict__ by,
-                         int32_t* __restrict__ bz, int32_t* __restrict__ ax,
-                         int32_t* __restrict__ ay, int32_t* __restrict__ az, int steps,
-                         int64_t lanes, int64_t num_slots) {
-  hybrid_bucket_block<D, NB, O>(shared_block(), table, px, py, qinf, head, slot, bx, by, bz, ax,
-                                ay, az, steps, lanes, num_slots);
+    MANTA_BUCKET_KERNEL(const int32_t* __restrict__ table, const int32_t* __restrict__ px,
+                        const int32_t* __restrict__ py, const int32_t* __restrict__ qinf,
+                        const int32_t* __restrict__ head, const int32_t* __restrict__ slot,
+                        int32_t* __restrict__ bx, int32_t* __restrict__ by,
+                        int32_t* __restrict__ bz, int32_t* __restrict__ ax,
+                        int32_t* __restrict__ ay, int32_t* __restrict__ az, int steps,
+                        int64_t lanes, int64_t num_slots) {
+  Stage& st = *reinterpret_cast<Stage*>(shared_bytes() + sizeof(S));
+  bucket_block<D, NB, O, MANTA_KERNEL == 4 ? kLimbs : kResidues>(
+      shared_block(), st, table, px, py, qinf, head, slot, bx, by, bz, ax, ay, az, steps, lanes,
+      num_slots);
 }
 #endif
 
@@ -177,7 +189,7 @@ inline dim3 grid_for(int64_t lanes) {
 
 // 0 when the launch can go ahead, else the cudaError_t to return: the table
 // must be this curve field's, the grid must fit, and the kernel must be
-// allowed sizeof(S) bytes of dynamic shared memory (asked once a kernel).
+// allowed kSharedBytes of dynamic shared memory (asked once a kernel).
 template <auto kernel>
 int refuse(long long lanes, long long table_words) {
   if (table_words != D::kWords) return static_cast<int>(cudaErrorInvalidValue);
@@ -185,7 +197,7 @@ int refuse(long long lanes, long long table_words) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   static const int allowed = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sizeof(S))));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSharedBytes)));
   return allowed;
 }
 
@@ -196,7 +208,7 @@ int launch_point(const void* table, const void* px, const void* py, const void* 
                  long long n, long long table_words, void* stream) {
   if (n <= 0) return 0;
   if (const int err = refuse<point_kernel<WHICH>>(n, table_words)) return err;
-  point_kernel<WHICH><<<grid_for(n), D::threads, sizeof(S), static_cast<cudaStream_t>(stream)>>>(
+  point_kernel<WHICH><<<grid_for(n), D::threads, kSharedBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(px),
       static_cast<const int32_t*>(py), static_cast<const int32_t*>(pz),
       static_cast<const int32_t*>(qx), static_cast<const int32_t*>(qy),
@@ -212,7 +224,7 @@ int launch_point(const void* table, const void* px, const void* py, const void* 
 // coordinate is a contiguous int32 array, `table` the curve field's constant
 // table of `table_words` words (`rns_kernels.py::device_table`).
 #ifndef MANTA_KERNEL
-#error "build with -DMANTA_KERNEL=0..5 (add, madd, double, column, hybrid bucket column, combine)"
+#error "build with -DMANTA_KERNEL=0..5 (add, madd, double, bucket column, hybrid bucket column, combine)"
 #elif MANTA_KERNEL <= 2
 #define MANTA_RNS_POINT_LAUNCHER(name, which)                                                 \
   extern "C" int name(const void* table, const void* px, const void* py, const void* pz,      \
@@ -231,41 +243,28 @@ extern "C" int manta_rns_is_zero(const void* table, const void* a, void* out, lo
                                  long long table_words, void* stream) {
   if (n <= 0) return 0;
   if (const int err = refuse<zero_kernel>(n, table_words)) return err;
-  zero_kernel<<<grid_for(n), D::threads, sizeof(S), static_cast<cudaStream_t>(stream)>>>(
+  zero_kernel<<<grid_for(n), D::threads, kSharedBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(a),
       static_cast<int32_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 #endif
-#elif MANTA_KERNEL == 3
-// px, py: (K, *E, R) residues; qinf, head: (K, R); ox, oy, oz: (K, *E, R)
-// residues.
-extern "C" int manta_rns_accumulate_columns(const void* table, const void* px, const void* py,
-                                            const void* qinf, const void* head, void* ox,
-                                            void* oy, void* oz, int steps, long long lanes,
-                                            long long table_words, void* stream) {
+#elif MANTA_KERNEL == 3 || MANTA_KERNEL == 4
+// px, py: (K, *E(Kt), R) residues (3) or (K, *E(L), R) limbs (4); qinf,
+// head, slot: (K, R); bx, by, bz: (*E(Kt), num_slots) buckets (infinity
+// where no run ends: the caller's); ax, ay, az: (*E(Kt), R) the last step.
+#if MANTA_KERNEL == 3
+extern "C" int manta_rns_accumulate_buckets(
+#else
+extern "C" int manta_rns_hybrid_buckets(
+#endif
+    const void* table, const void* px, const void* py, const void* qinf, const void* head,
+    const void* slot, void* bx, void* by, void* bz, void* ax, void* ay, void* az, int steps,
+    long long lanes, long long num_slots, long long table_words, void* stream) {
   if (lanes <= 0 || steps <= 0) return 0;
-  if (const int err = refuse<column_kernel>(lanes, table_words)) return err;
-  column_kernel<<<grid_for(lanes), D::threads, sizeof(S), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(px),
-      static_cast<const int32_t*>(py), static_cast<const int32_t*>(qinf),
-      static_cast<const int32_t*>(head), static_cast<int32_t*>(ox), static_cast<int32_t*>(oy),
-      static_cast<int32_t*>(oz), steps, lanes);
-  return static_cast<int>(cudaGetLastError());
-}
-#elif MANTA_KERNEL == 4
-// px, py: (K, *E(L), R) limbs; qinf, head, slot: (K, R); bx, by, bz:
-// (*E(Kt), num_slots) buckets (infinity where no run ends: the caller's);
-// ax, ay, az: (*E(Kt), R) the last step.
-extern "C" int manta_rns_hybrid_buckets(const void* table, const void* px, const void* py,
-                                        const void* qinf, const void* head, const void* slot,
-                                        void* bx, void* by, void* bz, void* ax, void* ay, void* az,
-                                        int steps, long long lanes, long long num_slots,
-                                        long long table_words, void* stream) {
-  if (lanes <= 0 || steps <= 0) return 0;
-  if (const int err = refuse<hybrid_bucket_kernel>(lanes, table_words)) return err;
-  hybrid_bucket_kernel<<<grid_for(lanes), D::threads, sizeof(S),
-                         static_cast<cudaStream_t>(stream)>>>(
+  if (const int err = refuse<MANTA_BUCKET_KERNEL>(lanes, table_words)) return err;
+  MANTA_BUCKET_KERNEL<<<grid_for(lanes), D::threads, kSharedBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(px),
       static_cast<const int32_t*>(py), static_cast<const int32_t*>(qinf),
       static_cast<const int32_t*>(head), static_cast<const int32_t*>(slot),
@@ -285,7 +284,7 @@ extern "C" int manta_rns_double_add(const void* table, const void* ix, const voi
   if (n <= 0) return 0;
   if (steps < 0 || doublings < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (const int err = refuse<combine_kernel>(n, table_words)) return err;
-  combine_kernel<<<grid_for(n), D::threads, sizeof(S), static_cast<cudaStream_t>(stream)>>>(
+  combine_kernel<<<grid_for(n), D::threads, kSharedBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(ix),
       static_cast<const int32_t*>(iy), static_cast<const int32_t*>(iz),
       static_cast<const int32_t*>(wx), static_cast<const int32_t*>(wy),

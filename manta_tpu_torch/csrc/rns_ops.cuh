@@ -155,8 +155,21 @@ struct Shared {
   uint32_t asum[2][NB][kLanes];
   uint32_t zr[kTests][2][kLanes];  // channels 0 and 1 of the tested residues
   uint32_t vote[kTests][D::warps];
-  // hybrid column: two steps' x, y limbs of <= 2 components
-  int32_t limbs[2][2][2][D::limbs][kLanes];
+};
+
+// The bucket column's input forms: RNS residues as they are (`rns_kernels.py::
+// rns_accumulate_buckets`), or 16-bit Montgomery limbs converted to RNS
+// (`hybrid_accumulate_buckets`).
+enum Input { kResidues = 0, kLimbs = 1 };
+
+// The bucket column's staging buffers in shared memory, after `Shared`: two
+// steps' x and y of C components, [buffer][coordinate][component][row][lane],
+// a row a limb (kLimbs) or a channel (kResidues: channel c of lane l is
+// thread c·8 + l's own word).
+template <class D, int C, int INPUT>
+struct Staging {
+  static constexpr int kRows = INPUT == kLimbs ? D::limbs : D::kp;
+  int32_t w[2][2][C][kRows][kLanes];
 };
 
 __device__ __forceinline__ uint32_t dot4(uint4 a, uint4 b) {
@@ -758,10 +771,10 @@ __device__ __forceinline__ void load_table(S& sh, const int32_t* __restrict__ ta
 }
 
 // limb -> RNS for one lane and channel: the residue of v = sum_i limb_i·2^(16 i)
-// (limbs of lane l in shared memory), reduced every 15 terms so the sum stays
-// below 2^32 (limb < 2^16, table entry < 2^12).
+// (limbs[i][l]: the D::limbs limbs of lane l in shared memory), reduced every
+// 15 terms so the sum stays below 2^32 (limb < 2^16, table entry < 2^12).
 template <class D, class X>
-__device__ __forceinline__ uint32_t limb_residue(const X& x, const int32_t (&limbs)[D::limbs][kLanes]) {
+__device__ __forceinline__ uint32_t limb_residue(const X& x, const int32_t (*limbs)[kLanes]) {
   const int32_t* trow = x.sh.table + D::kT + x.c * D::limbs;
   uint32_t acc = 0;
 #pragma unroll
@@ -800,118 +813,123 @@ __device__ void point_block(Shared<D, NB>& sh, const int32_t* __restrict__ table
   store_point<D, O>(ox, oy, oz, n, x.c, j, r);
 }
 
-// px, py, ox, oy, oz: (K, *E, R); one step of a coordinate is comps·Kt·R
-// words. Per lane: q = (x, y, 1), or infinity (x, 1, 0) where qinf;
-// acc = q at a head, else madd(acc, q); acc stored at every step.
-template <class D, int NB, class O>
-__device__ void column_block(Shared<D, NB>& sh, const int32_t* __restrict__ table,
-                             const int32_t* __restrict__ px, const int32_t* __restrict__ py,
-                             const int32_t* __restrict__ qinf, const int32_t* __restrict__ head,
-                             int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                             int32_t* __restrict__ oz, int steps, int64_t lanes) {
-  load_table<D>(sh, table);
-  typename O::X x(sh, threadIdx.x);
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kLanes + x.l;
-  const bool live = j < lanes;
-  const int64_t step = static_cast<int64_t>(O::kComps) * D::kt * lanes;
-  const typename O::V one = O::one(x), zero = O::zero(x);
-  Point<O> acc{zero, one, zero};
-  for (int k = 0; k < steps; ++k) {
-    const int64_t at = k * step;
-    const bool q_inf = live && qinf[k * lanes + j] != 0;
-    const bool is_head = live && head[k * lanes + j] != 0;
-    const Point<O> q{load<D, O>(px + at, lanes, x.c, j),
-                     q_inf ? one : load<D, O>(py + at, lanes, x.c, j), q_inf ? zero : one};
-    acc = select(is_head, q, Formulas<O>::madd(x, acc, q));
-    store_point<D, O>(ox + at, oy + at, oz + at, lanes, x.c, j, acc);
-  }
-}
-
-// The hybrid bucket column. px, py: (K, *E(L), R) 16-bit Montgomery limbs;
-// qinf, head, slot: (K, R). Per lane the column's loop, each step's point
-// converted to RNS (the residues of its limb value, then one RNS product by
-// M1²·2^(−16 L)); the accumulator is written only where slot >= 0, into
-// bucket slot of bx, by, bz (*E(Kt), num_slots), and after the last step
-// into ax, ay, az (*E(Kt), R). Pipelined: step k+1's conversion product runs
-// in step k's first round, and step k+2's limbs are staged with cp.async
-// into the buffer step k's left, waited for before step k's last round.
-// Barriers a step: the mixed addition's 11, no more.
-template <class D, int NB, class O>
-__device__ void hybrid_bucket_block(Shared<D, NB>& sh, const int32_t* __restrict__ table,
-                                    const int32_t* __restrict__ px,
-                                    const int32_t* __restrict__ py,
-                                    const int32_t* __restrict__ qinf,
-                                    const int32_t* __restrict__ head,
-                                    const int32_t* __restrict__ slot, int32_t* __restrict__ bx,
-                                    int32_t* __restrict__ by, int32_t* __restrict__ bz,
-                                    int32_t* __restrict__ ax, int32_t* __restrict__ ay,
-                                    int32_t* __restrict__ az, int steps, int64_t lanes,
-                                    int64_t num_slots) {
+// The bucket column, one loop for both input forms. px, py: (K, *E(Kt), R)
+// RNS residues (kResidues) or (K, *E(L), R) 16-bit Montgomery limbs (kLimbs);
+// qinf, head, slot: (K, R). Per lane: q = (x, y, 1), or infinity (x, 1, 0)
+// where qinf; acc = q at a head, else madd(acc, q). The accumulator is
+// written only where slot >= 0, into bucket slot of bx, by, bz (*E(Kt),
+// num_slots), and after the last step into ax, ay, az (*E(Kt), R); no
+// stream. Barriers a step: the mixed addition's 11, no more. Pipelined:
+//   - kLimbs: each step's point is converted to RNS (the residues of its limb
+//     value, then one RNS product by M1²·2^(−16 L)); step k+1's conversion
+//     product runs in step k's first round, and step k+2's limbs are staged
+//     with cp.async by the whole block into the buffer step k's conversion
+//     left, waited for before step k's last round, whose barriers publish
+//     them;
+//   - kResidues: each thread stages its own channel's words of step k+2
+//     with cp.async before step k's last round, into the buffer it read step
+//     k from, after waiting for step k+1's (so a step's loads overlap the
+//     step before it).
+template <class D, int NB, class O, int INPUT>
+__device__ void bucket_block(Shared<D, NB>& sh, Staging<D, O::kComps, INPUT>& st,
+                             const int32_t* __restrict__ table, const int32_t* __restrict__ px,
+                             const int32_t* __restrict__ py, const int32_t* __restrict__ qinf,
+                             const int32_t* __restrict__ head, const int32_t* __restrict__ slot,
+                             int32_t* __restrict__ bx, int32_t* __restrict__ by,
+                             int32_t* __restrict__ bz, int32_t* __restrict__ ax,
+                             int32_t* __restrict__ ay, int32_t* __restrict__ az, int steps,
+                             int64_t lanes, int64_t num_slots) {
   using V = typename O::V;
   constexpr int C = O::kComps;
-  constexpr int kLoads = 2 * C * D::limbs * kLanes;
+  constexpr bool kConvert = INPUT == kLimbs;
+  constexpr int kRowsIn = kConvert ? D::limbs : D::kt;  // rows of a component in px, py
   load_table<D>(sh, table);
   typename O::X x(sh, threadIdx.x);
   const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kLanes;
   const int64_t j = j0 + x.l;
   const bool live = j < lanes;
-  const int64_t step_in = static_cast<int64_t>(C) * D::limbs * lanes;
-  const uint32_t convk = x.row(kConvk);
-  // step k's limbs of the block's lanes into buffer buf, a word a thread
+  const int64_t step_in = static_cast<int64_t>(C) * kRowsIn * lanes;
+  // step k's x, y of the block's lanes into buffer buf
   auto stage = [&](int k, int buf) {
-    for (int i = threadIdx.x; i < kLoads; i += D::threads) {
-      const int lane = i % kLanes, limb = (i / kLanes) % D::limbs;
-      const int comp = (i / (kLanes * D::limbs)) % C, coord = i / (kLanes * D::limbs * C);
-      const int64_t jj = j0 + lane;
-      int32_t* dst = &sh.limbs[buf][coord][comp][limb][lane];
-      if (jj < lanes) {
-        const int32_t* src = coord ? py : px;
-        copy_word_async(dst, src + k * step_in + (static_cast<int64_t>(comp) * D::limbs + limb) * lanes + jj);
-      } else {
-        *dst = 0;
+    if constexpr (kConvert) {  // a word a thread, over the block
+      constexpr int kLoads = 2 * C * D::limbs * kLanes;
+      for (int i = threadIdx.x; i < kLoads; i += D::threads) {
+        const int lane = i % kLanes, limb = (i / kLanes) % D::limbs;
+        const int comp = (i / (kLanes * D::limbs)) % C, coord = i / (kLanes * D::limbs * C);
+        const int64_t jj = j0 + lane;
+        int32_t* dst = &st.w[buf][coord][comp][limb][lane];
+        if (jj < lanes) {
+          const int32_t* src = coord ? py : px;
+          copy_word_async(dst, src + k * step_in + (static_cast<int64_t>(comp) * D::limbs + limb) * lanes + jj);
+        } else {
+          *dst = 0;
+        }
+      }
+    } else {  // the thread's own channel and lane
+#pragma unroll
+      for (int i = 0; i < 2 * C; ++i) {
+        int32_t* dst = &st.w[buf][i / C][i % C][x.c][x.l];
+        if (live && x.c < D::kt) {
+          const int32_t* src = i / C ? py : px;
+          copy_word_async(dst, src + k * step_in + (static_cast<int64_t>(i % C) * D::kt + x.c) * lanes + j);
+        } else {
+          *dst = 0;
+        }
       }
     }
   };
-  // the conversion product's operands: each coordinate component's residue
-  // of step k's limbs in buffer buf, and M1²·2^(−16 L)
+  // kLimbs: the conversion product's operands, each coordinate component's
+  // residue of step k's limbs in buffer buf, and M1²·2^(−16 L)
   auto convert = [&](int buf, Extra<2 * C>& ex) {
+    const uint32_t convk = x.row(kConvk);
 #pragma unroll
     for (int i = 0; i < 2 * C; ++i) {
-      ex.a[i] = limb_residue<D>(x, sh.limbs[buf][i / C][i % C]);
+      ex.a[i] = limb_residue<D>(x, st.w[buf][i / C][i % C]);
       ex.b[i] = convk;
     }
   };
   const V one = O::one(x), zero = O::zero(x);
   Point<O> acc{zero, one, zero};
-  Extra<2 * C> ex;
-  // fill the pipeline: steps 0 and 1 staged, step 0 converted
+  Extra<kConvert ? 2 * C : 0> ex;
+  // fill the pipeline: steps 0 and 1 staged (and step 0 converted)
   stage(0, 0);
   if (steps > 1) stage(1, 1);
   copy_wait_all();
   __syncthreads();
-  convert(0, ex);
-  {
+  if constexpr (kConvert) {
+    convert(0, ex);
     Tests<0> none;
     x.round(ex.a, ex.b, ex.out, none);
   }
   for (int k = 0; k < steps; ++k) {
     uint32_t q[2 * C];
+    if constexpr (kConvert) {
 #pragma unroll
-    for (int i = 0; i < 2 * C; ++i) q[i] = ex.out[i];
-    // buffer k & 1 was last read before step k−1's first barrier
-    if (k + 2 < steps) stage(k + 2, k & 1);
-    if (k + 1 < steps) {
-      convert((k + 1) & 1, ex);
+      for (int i = 0; i < 2 * C; ++i) q[i] = ex.out[i];
+      // buffer k & 1 was last read before step k−1's first barrier
+      if (k + 2 < steps) stage(k + 2, k & 1);
+      if (k + 1 < steps) {
+        convert((k + 1) & 1, ex);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2 * C; ++i) ex.a[i] = ex.b[i] = 0u;
+      }
     } else {
 #pragma unroll
-      for (int i = 0; i < 2 * C; ++i) ex.a[i] = ex.b[i] = 0u;
+      for (int i = 0; i < 2 * C; ++i) q[i] = static_cast<uint32_t>(st.w[k & 1][i / C][i % C][x.c][x.l]);
     }
     const bool q_inf = live && qinf[k * lanes + j] != 0;
     const bool is_head = live && head[k * lanes + j] != 0;
     const Point<O> pt{O::make(q), q_inf ? one : O::make(q + C), q_inf ? zero : one};
-    // the staged limbs are waited for before the last round, whose barriers
-    // publish them for the next step's conversion
-    acc = select(is_head, pt, Formulas<O>::madd(x, acc, pt, ex, [] { copy_wait_all(); }));
+    // before the last round: the staged words are waited for (kResidues then
+    // stages step k+2 into the buffer step k was read from)
+    auto hook = [&] {
+      copy_wait_all();
+      if constexpr (!kConvert) {
+        if (k + 2 < steps) stage(k + 2, k & 1);
+      }
+    };
+    acc = select(is_head, pt, Formulas<O>::madd(x, acc, pt, ex, hook));
     const int32_t s = live ? slot[k * lanes + j] : -1;
     if (s >= 0) store_point<D, O>(bx, by, bz, num_slots, x.c, s, acc);
   }

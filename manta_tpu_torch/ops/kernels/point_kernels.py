@@ -1,5 +1,5 @@
 """Whole-formula curve kernels: point op, bucket column, fold, window combine,
-bucket merge; CUDA and plain.
+bucket merge, chain; CUDA and plain.
 
 Replaces the JAX package's Pallas TPU kernels of
 `manta_tpu/ops/pallas/point_kernels.py`: `_point_op` (public `fused_add`,
@@ -7,9 +7,10 @@ Replaces the JAX package's Pallas TPU kernels of
 writes the run ends straight into their buckets where the TPU kernel writes
 the accumulator after every step) and `_fold_call` (`fold_columns`), with
 the backend object `FusedCurveOps` / `fused_curve_ops_for`;
-`combine_windows` runs the MSM's window sums and Horner loop, and
-`merge_buckets` its two dense bucket merges (point-op calls in the JAX
-package), as one kernel each. The kernel source is
+`combine_windows` runs the MSM's window sums and Horner loop on the fold
+path, `merge_buckets` its two dense bucket merges, and `fused_double_add`
+its chains of doublings and an addition off the fold path (point-op calls in
+the JAX package), as one kernel each. The kernel source is
 `manta_tpu_torch/csrc/point_kernels.cu` (formulas in `point_ops.cuh`); its
 header gives the bound on the H100 and what the design does about it.
 
@@ -34,7 +35,8 @@ K, written from the JAX kernel body (`plain_accumulate_columns`, the JAX
 kernel's twin; `plain_accumulate_buckets` picks its run ends), the fold's
 the kernel's segmented scan (`_fold_scan`: chunks of a lane's steps, batched
 over the chunks), the combine's `msm.window_sums` and `msm.horner`, the
-merge's the two additions on the buckets a partial hits. Integers per lane
+chain's `msm.double_add_loop`, the merge's the two additions on the buckets
+a partial hits. Integers per lane
 keep the loops cheap on the CPU, where a limb-tensor field op costs about the
 same at any small lane count; the CPU tests hold them against the limb
 `CurveOps` and the JAX kernels, and `chip_smoke.py` holds the kernels
@@ -65,15 +67,20 @@ from manta_tpu_torch.ops.kernels import build as B
 from manta_tpu_torch.utils import hostmath
 
 #: launches of the CUDA kernels, counted by the wrappers: the point-op kernel
-#: by formula, the bucket column, fold, combine and merge kernels
+#: by formula, the bucket column, fold, combine, merge and chain kernels
 LAUNCHES = {"add": 0, "madd": 0, "double": 0, "buckets": 0, "fold": 0, "combine": 0,
-            "merge": 0}
+            "merge": 0, "chain": 0}
 
 #: curve name -> the MANTA_CURVE id of `point_kernels.cu`
 KERNEL_CURVES = {"bn254_g1": 0, "bn254_g2": 1, "bls12_381_g1": 2, "bls12_381_g2": 3}
 #: the MANTA_KERNEL ids of `point_kernels.cu`: one object each (the merge
-#: kernel is in the add kernel's)
+#: kernel is in the add kernel's, the chain kernel in the combine's)
 KERNELS = ("add", "madd", "double", "buckets", "fold", "combine")
+#: threads a lane of the point op, 1 (one thread), 2 or 4: the kernel's own
+#: choice is 2 for G1 and 1 for G2 (the fastest on the card, `point_kernels.cu`);
+#: `library(.., point_group=g)` builds the add object with another, to time
+#: the choices
+POINT_GROUPS = (1, 2, 4)
 
 SOURCE = B.CSRC / "point_kernels.cu"
 
@@ -83,8 +90,16 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def library(curve_name: str) -> B.Library:
+def library(curve_name: str, point_group: int = 0) -> B.Library:
+    """The curve's library; with `point_group`, its add object alone, the
+    point op built for that many threads a lane."""
     curve = f"MANTA_CURVE={KERNEL_CURVES[curve_name]}"
+    if point_group:
+        if point_group not in POINT_GROUPS:
+            raise ValueError(f"point_group must be one of {POINT_GROUPS}, got {point_group}")
+        return B.Library(f"point_kernels-{curve_name}-point_group{point_group}", SOURCE.name,
+                         ("field_ops.cuh", "point_ops.cuh"),
+                         ((curve, "MANTA_KERNEL=0", f"MANTA_POINT_GROUP={point_group}"),))
     units = tuple((curve, f"MANTA_KERNEL={k}") for k in range(len(KERNELS)))
     return B.Library(f"point_kernels-{curve_name}", SOURCE.name,
                      ("field_ops.cuh", "point_ops.cuh"), units)
@@ -94,18 +109,22 @@ LIBRARIES = tuple(library(name) for name in KERNEL_CURVES)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(curve_name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(B.build([library(curve_name)])[0]))
+def _lib(curve_name: str, point_group: int = 0) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(B.build([library(curve_name, point_group)])[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for which in ("add", "madd", "double"):
-        getattr(lib, f"manta_point_{which}").argtypes = [*[ptr] * 9, i64, ptr]
-    lib.manta_accumulate_buckets.argtypes = [*[ptr] * 11, i32, i64, i64, ptr]
-    lib.manta_fold_columns.argtypes = [*[ptr] * 10, i32, i64, ptr]
-    lib.manta_combine_windows.argtypes = [*[ptr] * 9, i32, i32, i32, ptr]
-    lib.manta_merge_buckets.argtypes = [*[ptr] * 13, i64, i64, i64, ptr]
-    for which in ("point_add", "point_madd", "point_double", "accumulate_buckets",
-                  "fold_columns", "combine_windows", "merge_buckets"):
-        getattr(lib, f"manta_{which}").restype = ctypes.c_int
+    entries = {
+        "point_add": [*[ptr] * 9, i64, ptr], "merge_buckets": [*[ptr] * 13, i64, i64, i64, ptr],
+        "point_madd": [*[ptr] * 9, i64, ptr], "point_double": [*[ptr] * 9, i64, ptr],
+        "accumulate_buckets": [*[ptr] * 11, i32, i64, i64, ptr],
+        "fold_columns": [*[ptr] * 10, i32, i64, ptr],
+        "combine_windows": [*[ptr] * 9, i32, i32, i32, ptr],
+        "double_add": [*[ptr] * 9, i64, i32, i32, i32, ptr],
+    }
+    for name, argtypes in entries.items():
+        if point_group and name not in ("point_add", "merge_buckets"):
+            continue  # a point-group library is the add object alone
+        fn = getattr(lib, f"manta_{name}")
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
 
 
@@ -471,6 +490,17 @@ def plain_combine_windows(curve, a, b, doublings: int, window_bits: int) -> Jaco
     return _point_from_ints(curve, M.horner(lc, sums, window_bits), a.x.device)
 
 
+def plain_fused_double_add(curve, init, addends, doublings: int, chain_first: bool = True):
+    """The chain kernel's work, over per-lane integers: the MSM's Python
+    lines it replaces (`msm.double_add_loop`) on init (*E, n) and addends
+    (S, *E, n); returns (*E, n)."""
+    ws = JacobianPoint(*(np.array([_to_ints(w, curve.is_ext) for w in c], dtype=object)
+                         for c in addends))  # (S, *E, n) -> (S, [2,] n) integers
+    acc = M.double_add_loop(_lane_curve(curve), _point_to_ints(curve, init), ws, doublings,
+                            chain_first)
+    return _point_from_ints(curve, acc, init.x.device)
+
+
 def _inverse_index(key, num_slots: int) -> torch.Tensor:
     """(num_slots,) int32: the entry of `key` (n,) that names each slot, or
     -1 (a key of -1 names none; the keys >= 0 are unique)."""
@@ -573,6 +603,7 @@ PLAIN = {
     "fold": plain_fold_columns,
     "combine": plain_combine_windows,
     "merge": plain_merge_buckets,
+    "chain": plain_fused_double_add,
 }
 
 
@@ -617,7 +648,11 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _point_op(curve, which: str, p: JacobianPoint, q: JacobianPoint = None) -> JacobianPoint:
+def _point_op(curve, which: str, p: JacobianPoint, q: JacobianPoint = None,
+              point_group: int = 0) -> JacobianPoint:
+    """One point-op launch on CUDA tensors (the curve's own build, or with
+    `point_group` the add object built for that many threads a lane), the
+    plain version on CPU tensors."""
     pts = [*p] if q is None else [*p, *q]
     edims = _edims(curve)
     shape = p.x.shape
@@ -638,7 +673,7 @@ def _point_op(curve, which: str, p: JacobianPoint, q: JacobianPoint = None) -> J
         out = JacobianPoint(*(torch.empty_like(flat[0]) for _ in range(3)))
         if n:
             ins = flat if q is not None else flat * 2
-            err = getattr(_lib(curve.name), f"manta_point_{which}")(
+            err = getattr(_lib(curve.name, point_group), f"manta_point_{which}")(
                 *(t.data_ptr() for t in ins),
                 *(t.data_ptr() for t in out), n, _stream())
             _check_launch(err, f"point {which}")
@@ -720,6 +755,39 @@ def fold_columns(curve, qx, qy, qz, head, sums: bool = False):
     return JacobianPoint(*a), None if b is None else JacobianPoint(*b)
 
 
+def fused_double_add(curve, init: JacobianPoint, addends: JacobianPoint, doublings: int,
+                     chain_first: bool = True) -> JacobianPoint:
+    """Per lane of init (*E, ...): acc = init; for each of the S addends
+    (S, *E, ...): `doublings` doublings of acc, then acc = add(acc, w)
+    (chain_first) or add(w, acc); one launch for every chain (a warp a
+    chain). Returns acc, shaped as init. See `plain_fused_double_add`."""
+    edims = _edims(curve)
+    shape = init.x.shape
+    steps = addends.x.shape[0]
+    if (tuple(shape[: len(edims)]) != edims or any(c.shape != shape for c in init)
+            or any(tuple(c.shape) != (steps, *shape) for c in addends) or doublings < 0):
+        raise ValueError(f"{curve.name}: expected coordinates ({', '.join(map(str, edims))}, "
+                         f"...) and addends (S, same), doublings >= 0, got "
+                         f"{[tuple(c.shape) for c in (*init, *addends)]}, {doublings}")
+    n = 1
+    for d in shape[len(edims):]:
+        n *= d
+    ins = [c.reshape(*edims, n).contiguous() for c in init]
+    ws = [c.reshape(steps, *edims, n).contiguous() for c in addends]
+    if not _on_cuda(curve, (*ins, *ws)):
+        out = plain_fused_double_add(curve, JacobianPoint(*ins), JacobianPoint(*ws), doublings,
+                                     chain_first)
+        return JacobianPoint(*(c.reshape(shape) for c in out))
+    out = [torch.empty_like(ins[0]) for _ in range(3)]
+    if n:
+        err = _lib(curve.name).manta_double_add(
+            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in ws),
+            *(t.data_ptr() for t in out), n, steps, doublings, int(chain_first), _stream())
+        _check_launch(err, "chain")
+        LAUNCHES["chain"] += 1
+    return JacobianPoint(*(c.reshape(shape) for c in out))
+
+
 def merge_buckets(curve, buckets: JacobianPoint, v1: JacobianPoint, key1, v2: JacobianPoint,
                   key2) -> JacobianPoint:
     """Add the fold's trailing partials into the buckets: buckets (*E, N);
@@ -797,7 +865,9 @@ class FusedCurveOps(C.CurveOps):
     MSM's glue); add / madd / double launch one kernel each, and the MSM
     finds `run_bucket_columns` / `run_fold_columns` / `merge_buckets` /
     `combine_windows` and runs its bucket loop, folds, bucket merge and
-    window combine as single launches (`ops/msm.py`)."""
+    window combine as single launches, and off the fold path `double_add`
+    and runs each chain of doublings and an addition (Horner, the weighted
+    reductions) as one (`ops/msm.py`)."""
 
     def add(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
         return fused_add(self.curve, p, q)
@@ -807,6 +877,9 @@ class FusedCurveOps(C.CurveOps):
 
     def double(self, p: JacobianPoint) -> JacobianPoint:
         return fused_double(self.curve, p)
+
+    def double_add(self, init, addends, doublings: int, chain_first: bool = True):
+        return fused_double_add(self.curve, init, addends, doublings, chain_first)
 
     def run_bucket_columns(self, px, py, qinf, head, slot, num_slots: int):
         return accumulate_buckets(self.curve, px, py, qinf, head, slot, num_slots)

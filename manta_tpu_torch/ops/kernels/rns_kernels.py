@@ -3,7 +3,7 @@ CUDA and plain.
 
 Replaces the JAX package's Pallas TPU kernels of
 `manta_tpu/ops/pallas/rns_kernels.py`: `_rns_point_op` (public `rns_add`,
-`rns_madd`, `rns_double`), `_rns_column_call` (`rns_accumulate_columns`) and
+`rns_madd`, `rns_double`), `_rns_column_call` (`rns_accumulate_buckets`) and
 `_hybrid_column_call` (`hybrid_accumulate_buckets`), with the backend objects
 `RnsFusedCurveOps` / `RnsHybridCurveOps` and `rns_fused_curve_ops_for` /
 `rns_hybrid_curve_ops_for`. The combine kernel (`rns_double_add`) runs the
@@ -15,12 +15,14 @@ the H100 and what the design does about it.
 
 Layout at the boundary, as in the JAX package: coordinates packed
 channels-major int32 residues, `(Kt, ...)` for G1 and `(2, Kt, ...)` for G2
-(`ops/rns.py`); the column streams `(K, *E, R)` with masks `(K, R)`; the
-hybrid column's input points as 16-bit Montgomery limbs `(K, *E(L), R)`.
-The JAX hybrid kernel writes the accumulator after every step, from which
-the MSM picks the run ends; `hybrid_accumulate_buckets` writes only the run
-ends, into their buckets, and the last step (the same buckets, bit for bit).
-Each public function dispatches on the tensors' device:
+(`ops/rns.py`); the bucket columns' sorted point streams `(K, *E, R)` with
+masks `(K, R)`, RNS residues (`rns_accumulate_buckets`) or 16-bit
+Montgomery limbs `(K, *E(L), R)` (`hybrid_accumulate_buckets`). The JAX
+column kernels write the accumulator after every step, from which the MSM
+picks the run ends; both bucket columns here write only the run ends, into
+their buckets, and the last step (the same buckets, bit for bit: their plain
+versions are the JAX kernels' streams and `pick_run_ends`). Each public
+function dispatches on the tensors' device:
 
 - CUDA: one launch of the curve's kernel on the current stream, counted in
   `LAUNCHES`. No fallback: an unsupported curve, dtype or shape raises, and
@@ -64,15 +66,15 @@ from manta_tpu_torch.utils import hostmath
 N_ZERO_CLASSES = 1 << 13
 
 #: launches of the CUDA kernels, counted by the wrappers: the point-op kernel
-#: by formula, the column kernel, the hybrid bucket column, the combine and
-#: the zero-test launcher
-LAUNCHES = {"add": 0, "madd": 0, "double": 0, "columns": 0, "buckets": 0, "combine": 0,
+#: by formula, the bucket column (RNS points in), the hybrid bucket column
+#: (limb points in), the combine and the zero-test launcher
+LAUNCHES = {"add": 0, "madd": 0, "double": 0, "buckets": 0, "hybrid": 0, "combine": 0,
             "is_zero": 0}
 
 #: curve name -> the MANTA_CURVE id of `rns_kernels.cu`
 KERNEL_CURVES = {"bn254_g1": 0, "bn254_g2": 1, "bls12_381_g1": 2, "bls12_381_g2": 3}
 #: the MANTA_KERNEL ids of `rns_kernels.cu`: one object each
-KERNELS = ("add", "madd", "double", "columns", "buckets", "combine")
+KERNELS = ("add", "madd", "double", "buckets", "hybrid", "combine")
 
 SOURCE = B.CSRC / "rns_kernels.cu"
 
@@ -101,10 +103,10 @@ def _lib(curve_name: str) -> ctypes.CDLL:
     for which in ("add", "madd", "double"):
         getattr(lib, f"manta_rns_point_{which}").argtypes = [*[ptr] * 10, i64, i64, ptr]
     lib.manta_rns_is_zero.argtypes = [ptr, ptr, ptr, i64, i64, ptr]
-    lib.manta_rns_accumulate_columns.argtypes = [*[ptr] * 8, i32, i64, i64, ptr]
-    lib.manta_rns_hybrid_buckets.argtypes = [*[ptr] * 12, i32, i64, i64, i64, ptr]
+    for which in ("accumulate_buckets", "hybrid_buckets"):
+        getattr(lib, f"manta_rns_{which}").argtypes = [*[ptr] * 12, i32, i64, i64, i64, ptr]
     lib.manta_rns_double_add.argtypes = [*[ptr] * 10, i64, i32, i32, i32, i64, ptr]
-    for name in ("point_add", "point_madd", "point_double", "is_zero", "accumulate_columns",
+    for name in ("point_add", "point_madd", "point_double", "is_zero", "accumulate_buckets",
                  "hybrid_buckets", "double_add"):
         getattr(lib, f"manta_rns_{name}").restype = ctypes.c_int
     return lib
@@ -374,6 +376,15 @@ def _infinity(curve, lanes: int, device) -> JacobianPoint:
     return JacobianPoint(*(c.contiguous() for c in inf))
 
 
+def plain_rns_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
+    """`plain_rns_accumulate_columns`, then its value at each step and lane
+    with slot >= 0 written to bucket slot of an infinity array (*E(Kt),
+    num_slots); returns (the buckets, the last step's accumulator (*E(Kt),
+    R))."""
+    return pick_run_ends(curve, plain_rns_accumulate_columns(curve, px, py, qinf, head), slot,
+                         num_slots)
+
+
 def plain_hybrid_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
     """`plain_hybrid_accumulate_columns`, then its value at each step and
     lane with slot >= 0 written to bucket slot of an infinity array
@@ -409,8 +420,8 @@ PLAIN = {
     "add": lambda curve, p, q: plain_rns_point_op(curve, "add", p, q),
     "madd": lambda curve, p, q: plain_rns_point_op(curve, "madd", p, q),
     "double": lambda curve, p: plain_rns_point_op(curve, "double", p),
-    "columns": plain_rns_accumulate_columns,
-    "buckets": plain_hybrid_accumulate_buckets,
+    "buckets": plain_rns_accumulate_buckets,
+    "hybrid": plain_hybrid_accumulate_buckets,
     "combine": plain_rns_double_add,
     "is_zero": plain_rns_is_zero,
 }
@@ -530,41 +541,14 @@ def _check_stream(curve, coords, masks, in_rows: int) -> tuple:
     return K, shape[-1]
 
 
-def rns_accumulate_columns(curve, px, py, qinf, head) -> JacobianPoint:
-    """The K-step bucket accumulation over the sorted affine RNS stream
-    `px, py` (K, *E, R) with masks `qinf, head` (K, R): the accumulator
-    after every step, (K, *E, R) each."""
+def _bucket_column(curve, which: str, px, py, qinf, head, slot, num_slots: int):
+    """One launch of a bucket column (`which`: "buckets", RNS points in, or
+    "hybrid", 16-bit limb points in), or its plain version on CPU tensors."""
     spec = R.default_spec(curve.field)
-    K, lanes = _check_stream(curve, (px, py), (qinf, head), spec.kt)
+    in_rows = spec.kt if which == "buckets" else curve.field.num_limbs
+    K, lanes = _check_stream(curve, (px, py), (qinf, head, slot), in_rows)
     if not _on_cuda(curve, (px, py)):
-        return plain_rns_accumulate_columns(curve, px, py, qinf, head)
-    if qinf.device != px.device or head.device != px.device:
-        raise ValueError("masks and stream on different devices")
-    px, py = px.contiguous(), py.contiguous()
-    masks = [m.to(torch.int32).contiguous() for m in (qinf, head)]
-    out = JacobianPoint(*(torch.empty_like(px) for _ in range(3)))
-    if K and lanes:
-        table, words = _table(curve, px.device)
-        err = _lib(curve.name).manta_rns_accumulate_columns(
-            table, px.data_ptr(), py.data_ptr(), *(m.data_ptr() for m in masks),
-            *(t.data_ptr() for t in out), K, lanes, words, PK._stream())
-        PK._check_launch(err, "RNS columns")
-        LAUNCHES["columns"] += 1
-    return out
-
-
-def hybrid_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
-    """The K-step bucket accumulation over 16-bit-limb points `px, py`
-    (K, *E(L), R) with masks `qinf, head` and `slot` (K, R) int, each step's
-    point converted to RNS: the accumulator at each step and lane with slot
-    >= 0, written to bucket slot of a (*E(Kt), num_slots) array that is
-    infinity elsewhere (the slots >= 0 unique), and the last step's
-    accumulator (*E(Kt), R). Returns (buckets, acc_last). See
-    `plain_hybrid_accumulate_buckets`."""
-    spec = R.default_spec(curve.field)
-    K, lanes = _check_stream(curve, (px, py), (qinf, head, slot), curve.field.num_limbs)
-    if not _on_cuda(curve, (px, py)):
-        return plain_hybrid_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots)
+        return PLAIN[which](curve, px, py, qinf, head, slot, num_slots)
     if any(m.device != px.device for m in (qinf, head, slot)):
         raise ValueError("masks and stream on different devices")
     px, py = px.contiguous(), py.contiguous()
@@ -573,13 +557,32 @@ def hybrid_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
     acc_last = JacobianPoint(*(px.new_empty((*_edims(curve, spec.kt), lanes)) for _ in range(3)))
     if K and lanes:
         table, words = _table(curve, px.device)
-        err = _lib(curve.name).manta_rns_hybrid_buckets(
+        launch = {"buckets": "manta_rns_accumulate_buckets",
+                  "hybrid": "manta_rns_hybrid_buckets"}[which]
+        err = getattr(_lib(curve.name), launch)(
             table, px.data_ptr(), py.data_ptr(), *(m.data_ptr() for m in masks),
             *(t.data_ptr() for t in buckets), *(t.data_ptr() for t in acc_last), K, lanes,
             num_slots, words, PK._stream())
-        PK._check_launch(err, "RNS hybrid bucket column")
-        LAUNCHES["buckets"] += 1
+        PK._check_launch(err, f"RNS {which} bucket column")
+        LAUNCHES[which] += 1
     return buckets, acc_last
+
+
+def rns_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
+    """The K-step bucket accumulation over the sorted affine RNS stream
+    `px, py` (K, *E(Kt), R) with masks `qinf, head` and `slot` (K, R) int:
+    the accumulator at each step and lane with slot >= 0, written to bucket
+    slot of a (*E(Kt), num_slots) array that is infinity elsewhere (the slots
+    >= 0 unique), and the last step's accumulator (*E(Kt), R). Returns
+    (buckets, acc_last). See `plain_rns_accumulate_buckets`."""
+    return _bucket_column(curve, "buckets", px, py, qinf, head, slot, num_slots)
+
+
+def hybrid_accumulate_buckets(curve, px, py, qinf, head, slot, num_slots: int):
+    """`rns_accumulate_buckets` over 16-bit-limb points `px, py` (K, *E(L),
+    R), each step's point converted to RNS. Returns (buckets, acc_last). See
+    `plain_hybrid_accumulate_buckets`."""
+    return _bucket_column(curve, "hybrid", px, py, qinf, head, slot, num_slots)
 
 
 def rns_double_add(curve, init: JacobianPoint, addends: JacobianPoint, doublings: int,
@@ -653,12 +656,12 @@ class _RnsKernelCurveOps(C.CurveOps):
 
 @dataclasses.dataclass(frozen=True)
 class RnsFusedCurveOps(_RnsKernelCurveOps):
-    """RNS kernels over RNS point arrays: the MSM finds `run_columns` and
-    runs its bucket loop as one launch of the column kernel, whose stream it
-    picks the run ends from."""
+    """RNS kernels over RNS point arrays: the MSM finds `run_bucket_columns`
+    and runs its bucket loop as one launch of the bucket column, which writes
+    the run ends into their buckets."""
 
-    def run_columns(self, px, py, qinf, head) -> JacobianPoint:
-        return rns_accumulate_columns(self.curve, px, py, qinf, head)
+    def run_bucket_columns(self, px, py, qinf, head, slot, num_slots: int):
+        return rns_accumulate_buckets(self.curve, px, py, qinf, head, slot, num_slots)
 
 
 @functools.lru_cache(maxsize=None)

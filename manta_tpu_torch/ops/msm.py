@@ -17,13 +17,12 @@ Port of `manta_tpu/ops/msm.py`, limb and fused backends:
    take any lane count, so they also serve the R that the JAX package's
    kernel cannot (not a multiple of 128: there, K launches of the fused
    mixed addition add up the same per-lane chains). Completed runs land in
-   their bucket: the fused backend's bucket column writes each run end
-   straight into it (`_column_run_ends`, slots from `_run_end_slots`), and
-   so does the "rns_hybrid" backend's hybrid bucket column; the "rns_fused"
-   backend's column kernel writes the accumulator after every step, of
-   which `_run_ends_compact` locates the run ends (`_column_stream`). Runs
-   that span chunks leave trailing partials that a segmented fold adds into
-   a second bucket batch.
+   their bucket: every fused backend's bucket column writes each run end
+   straight into it (`_column_run_ends`, slots from `_run_end_slots`), where
+   the JAX package's column kernels write the accumulator after every step
+   and its MSM picks the run ends out of that stream. Runs that span chunks
+   leave trailing partials that a segmented fold adds into a second bucket
+   batch.
 3. **Bucket reduction**: sum_b b·S_b. On the fold path of the fused backend
    (`msm`'s `fold_path`) the trailing partials and the weighted sum go
    through the fold kernel (`_fold_trailing_fused`, `_weighted_fold_fused`);
@@ -39,16 +38,17 @@ Port of `manta_tpu/ops/msm.py`, limb and fused backends:
 4. **Window combine**: Horner over windows (c doublings per window),
    `horner`. On the fold path the window sums (`window_sums`) and Horner's
    rule are one launch of the fused backend's combine kernel
-   (`combine_windows`). On the RNS backends each chain of doublings and an
-   addition (Horner's rule, the weighted reductions' doubling runs) is one
-   launch of their combine kernel (`double_add`, `_double_add`).
+   (`combine_windows`). Off the fold path, on the fused and RNS backends,
+   each chain of doublings and an addition (Horner's rule, the weighted
+   reductions' doubling runs) is one launch of their chain kernel
+   (`double_add`, `_double_add`).
 
 On the limb backend every field operation is one launch of the field kernel
 on a CUDA tensor (`ops/kernels/field_kernels.py`); on the fused backend each
 point formula is one launch (`ops/kernels/point_kernels.py`) and only the
 glue (selects, negations) runs as field ops. The RNS backends
-(`ops/kernels/rns_kernels.py`) have a column kernel and point-formula
-kernels but no fold kernel, so they take the non-fold path; the hybrid one
+(`ops/kernels/rns_kernels.py`) have a bucket column, point-formula and
+chain kernels but no fold kernel, so they take the non-fold path; the hybrid one
 keeps the affine point arrays as limbs (`point_ops`, `point_infinity_like`)
 while its buckets are RNS. GLV is a later slice.
 """
@@ -75,9 +75,9 @@ def _map(pt: JacobianPoint, fn) -> JacobianPoint:
 def _fused(cops: C.CurveOps) -> bool:
     """Fused backends: the column loop runs as one kernel, a bucket column
     that writes run ends only (`run_bucket_columns`: the fused backend,
-    `ops/kernels/point_kernels.py`, and "rns_hybrid") or the "rns_fused"
-    backend's stream column (`run_columns`, `ops/kernels/rns_kernels.py`)."""
-    return hasattr(cops, "run_bucket_columns") or hasattr(cops, "run_columns")
+    `ops/kernels/point_kernels.py`, and "rns_fused" and "rns_hybrid",
+    `ops/kernels/rns_kernels.py`)."""
+    return hasattr(cops, "run_bucket_columns")
 
 
 def window_digits(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:
@@ -227,35 +227,6 @@ def _fold_partials(
     return store.buckets()
 
 
-def _run_ends_compact(d_flat: torch.Tensor, end_flat: torch.Tensor, num_buckets: int):
-    """Locate each window's run ends with index math over rows (W, KR):
-    pos_c[w, s] is the stream position of the end of window w's s-th run
-    (clamped), idx_b[w, s] its bucket (num_buckets = no run, dropped)."""
-    num_windows, kr = d_flat.shape
-    rank = torch.cumsum(end_flat.to(torch.int64), -1)
-    slots = torch.where(end_flat, rank - 1, num_buckets).clamp_(max=num_buckets)
-    iota = torch.arange(kr, device=d_flat.device).expand(num_windows, kr)
-    pos = torch.full((num_windows, num_buckets + 1), kr, dtype=torch.int64, device=d_flat.device)
-    pos = pos.scatter_(-1, slots, iota)[:, :num_buckets]
-    valid = pos < kr
-    pos_c = pos.clamp(max=kr - 1)
-    idx_b = torch.where(valid, d_flat.gather(-1, pos_c), num_buckets)
-    return pos_c, idx_b
-
-
-def _scatter_drop(binf: JacobianPoint, idx: torch.Tensor, val: JacobianPoint) -> JacobianPoint:
-    """binf with val[..., s] written at bucket idx[..., s] along the last
-    axis; an index equal to the bucket count is dropped (the JAX package's
-    `.at[idx].set(mode="drop")`)."""
-
-    def put(b, v):
-        spare = torch.cat([b, b[..., :1]], -1).contiguous()
-        ix = idx.expand(*v.shape[:-idx.ndim], *idx.shape)
-        return spare.scatter_(-1, ix, v)[..., : b.shape[-1]]
-
-    return JacobianPoint(*(put(b, v) for b, v in zip(binf, val)))
-
-
 def _run_end_slots(d_t: torch.Tensor, end: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """(K, W·R) int32: w·num_buckets + digit at each step and lane where a
     run ends in window w's sorted order (`_sorted_layout`'s `end`), else -1:
@@ -267,45 +238,15 @@ def _run_end_slots(d_t: torch.Tensor, end: torch.Tensor, num_buckets: int) -> to
 
 
 def _column_run_ends(cops, px, py, qinf, head, d_t, end, num_buckets: int):
-    """The bucket column (fused and "rns_hybrid"): one launch writes each run end
-    into its bucket and the last step's accumulator; no (K, *E, W·R)
-    stream. Returns the (*E, W, num_buckets) buckets (infinity where no run
-    ends) and the trailing accumulators (*E, W, R)."""
+    """The bucket column: one launch writes each run end into its bucket and
+    the last step's accumulator; no (K, *E, W·R) stream. Returns the
+    (*E, W, num_buckets) buckets (infinity where no run ends) and the
+    trailing accumulators (*E, W, R)."""
     steps, num_windows, lanes = d_t.shape
     slot = _run_end_slots(d_t, end, num_buckets)
     buckets, acc = cops.run_bucket_columns(px, py, qinf, head, slot, num_windows * num_buckets)
     return (_map(buckets, lambda a: a.reshape(*a.shape[:-1], num_windows, num_buckets)),
             _map(acc, lambda a: a.reshape(*a.shape[:-1], num_windows, lanes)))
-
-
-def _column_stream(cops, px, py, qinf, head, d_t, end, num_buckets: int):
-    """The "rns_fused" backend's column kernel: the accumulator after every step,
-    (K, *E, W·R); the <= num_buckets run-end values of each window are
-    picked out of it and written to their buckets. Same returns as
-    `_column_run_ends`."""
-    steps, num_windows, lanes = d_t.shape
-    ox, oy, oz = cops.run_columns(px, py, qinf, head)
-    stream = JacobianPoint(
-        *(a.reshape(*a.shape[:-1], num_windows, lanes) for a in (ox, oy, oz))
-    )  # (K, *E, W, R)
-
-    def tmpl(a):
-        return torch.zeros((*a.shape[1:-1], num_buckets), dtype=a.dtype, device=a.device)
-
-    binf = cops.infinity_like(_map(stream, tmpl))
-    # run ends in each window's stream order [k, j] -> k*R + j
-    d_flat = d_t.permute(1, 0, 2).reshape(num_windows, -1)
-    end_flat = end.permute(1, 0, 2).reshape(num_windows, -1)
-    pos_c, idx_b = _run_ends_compact(d_flat, end_flat, num_buckets)
-
-    def pick(a):  # (K, *E, W, R) -> (*E, W, num_buckets) values at run ends
-        flat = a.movedim(0, -2).reshape(*a.shape[1:-2], num_windows, steps * lanes)
-        return flat.gather(-1, pos_c.expand(*flat.shape[:-2], *pos_c.shape))
-
-    buckets = _scatter_drop(binf, idx_b, _map(stream, pick))
-    # the last step is all that stays: copying it frees the (K, *E, W·R)
-    # streams (0.8–1.6 GB an MSM of the production prover) at return
-    return buckets, _map(stream, lambda a: a[-1].clone())
 
 
 def _bucket_sums_fused(
@@ -317,11 +258,10 @@ def _bucket_sums_fused(
     negs=None,
     parts: bool = False,
 ):
-    """Fused bucket accumulation, all windows at once: one column-kernel
+    """Fused bucket accumulation, all windows at once: one bucket-column
     launch over the (K, *E, W·R) sorted affine stream; the <= num_buckets
     run-end values of each window land in their buckets
-    (`_column_run_ends` where the backend has a bucket column,
-    `_column_stream` on "rns_fused").
+    (`_column_run_ends`).
 
     Returns the (*E, W, num_buckets) buckets; with `parts`, instead the
     run-end buckets, the trailing accumulators (*E, W, R) and d_t (K, W, R)
@@ -348,9 +288,8 @@ def _bucket_sums_fused(
         neg_t = neg_t.permute(1, 0, 2).reshape(steps, *(1,) * (py.ndim - 2), -1)
         py = torch.where(neg_t, gather(po.neg(points.y)), py)
     qinf = cops.affine_infinity_mask(points)[perm].permute(1, 0, 2)  # (K, W, R)
-    column = _column_run_ends if hasattr(cops, "run_bucket_columns") else _column_stream
-    buckets_a, acc_last = column(cops, px, py, qinf.reshape(steps, -1),
-                                 head.reshape(steps, -1), d_t, end, num_buckets)
+    buckets_a, acc_last = _column_run_ends(cops, px, py, qinf.reshape(steps, -1),
+                                           head.reshape(steps, -1), d_t, end, num_buckets)
     if parts:
         return buckets_a, acc_last, d_t
     binf = cops.infinity_like(buckets_a)
@@ -548,8 +487,8 @@ def double_add_loop(cops: C.CurveOps, init: JacobianPoint, addends: JacobianPoin
 
 
 def _double_add(cops: C.CurveOps, init, addends, doublings: int, chain_first: bool = True):
-    """`double_add_loop`, as one launch of the backend's combine kernel where
-    it has one (`double_add`: the RNS backends)."""
+    """`double_add_loop`, as one launch of the backend's chain kernel where
+    it has one (`double_add`: the fused and RNS backends)."""
     if hasattr(cops, "double_add"):
         return cops.double_add(init, addends, doublings, chain_first)
     return double_add_loop(cops, init, addends, doublings, chain_first)
@@ -560,7 +499,7 @@ def horner(cops: C.CurveOps, wins: JacobianPoint, window_bits: int) -> JacobianP
     acc = W_last; for w = last-1..0: acc = 2^c·acc + W_w. Returns (*E, 1)."""
     acc = _map(wins, lambda a: a[..., -1, :])
     if hasattr(cops, "double_add"):
-        # one combine launch over the addends W_{last-1}, ..., W_0: (W-1, *E, 1)
+        # one chain launch over the addends W_{last-1}, ..., W_0: (W-1, *E, 1)
         rest = _map(wins, lambda a: a[..., :-1, :].flip(-2).movedim(-2, 0))
         return cops.double_add(acc, rest, window_bits)
     for w in range(wins.x.shape[-2] - 2, -1, -1):

@@ -89,11 +89,11 @@ def test_other_backends_raise(backend):
         return
     cops = C.curve_ops_for(TH.BN254_G1, backend)
     assert cops.backend == ("fused" if backend == "fused" else "rns")
-    # the fused and rns_hybrid backends' columns write run ends only; rns_fused's a stream
-    assert hasattr(cops, "run_bucket_columns") == (backend in ("fused", "rns_hybrid"))
-    assert hasattr(cops, "run_columns") == (backend == "rns_fused")
-    # the RNS backends run the MSM's chains of doublings as combine launches
-    assert hasattr(cops, "double_add") == backend.startswith("rns")
+    # every kernel backend's bucket column writes run ends only: none has a
+    # stream column
+    assert hasattr(cops, "run_bucket_columns") and not hasattr(cops, "run_columns")
+    # every kernel backend runs the MSM's chains of doublings as chain launches
+    assert hasattr(cops, "double_add")
     assert hasattr(cops, "point_ops") == (backend == "rns_hybrid")
 
 

@@ -5,15 +5,19 @@ JAX package's host big-int MSM) at the shapes of the JAX package's
 `TestFoldReduction` (n = 2048, window 9, 16 column steps: R = 128 lanes, so
 the fold path runs) and on BN254 G1. The stages of the fold path are held
 against the JAX functions called eagerly on TOY (their kernels in Pallas
-interpret mode): `_run_ends_compact` and `_bucket_sums_fused` (one column
-launch over all windows here, one per window there) bit for bit;
+interpret mode): the run ends (`_run_end_slots` here, `_run_ends_compact`
+there) and `_bucket_sums_fused` (one column launch over all windows here,
+one per window there) bit for bit;
 `_fold_trailing_fused` (whose compact run ends are scattered into the JAX
 function's dense bucket arrays here), the bucket merge and
 `_weighted_fold_fused` after `decode_points`, because the port's fold
 kernel is a segmented scan that adds in another order, and bit for bit with
 the scan cut to one thread per lane (the JAX kernel's sequential order).
-The fused backend's MSM never runs the column stream path that the RNS
-backends keep. Inputs come from numpy seeds; tolerance: none
+No backend's MSM writes a column stream: every kernel backend takes its
+bucket column. Off the fold path the fused MSM runs Horner's rule and the
+weighted reductions' doubling runs as chain calls (`FusedCurveOps.double_add`),
+held against the JAX package's fused MSM after `decode_points`. Inputs come
+from numpy seeds; tolerance: none
 (exact integer arithmetic). Everything runs on CPU tensors (the plain
 versions).
 """
@@ -108,6 +112,40 @@ def test_toy_fused_without_fold_path(window_bits, steps, n):
     _fused_msm(JH.TOY_G1, TH.TOY_G1, _toy_points(rng, n), scalars_np(rng, n, r), window_bits, steps)
 
 
+def test_toy_fused_off_fold_path_runs_chains_and_equals_limb_msm(monkeypatch):
+    """Off the fold path (window 5, 7 steps: 29 lanes, M = 16) the fused MSM
+    runs Horner's rule and the weighted reductions' two doubling runs as
+    three chain calls (`fused_double_add`, through `FusedCurveOps.double_add`)
+    and no single-lane doubling; it equals `msm_host_oracle`, and bit for bit
+    the limb backend's MSM, which runs the same formulas a double or an add
+    at a time (`msm.double_add_loop`, the JAX package's order)."""
+    calls = {"chain": 0, "double": 0}
+
+    def chain(*args, _fn=PK.fused_double_add):
+        calls["chain"] += 1
+        return _fn(*args)
+
+    def point_op(curve, which, *args, _fn=PK._point_op):
+        calls["double"] += which == "double"
+        return _fn(curve, which, *args)
+
+    monkeypatch.setattr(PK, "fused_double_add", chain)
+    monkeypatch.setattr(PK, "_point_op", point_op)
+    rng = np.random.default_rng(65)
+    r = JH.TOY_G1.scalar_field.modulus
+    points, scalars = _toy_points(rng, 200), scalars_np(rng, 200, r)
+    sc = F.as_tensor(F.encode_ints(TH.TOY_G1.scalar_field, scalars, montgomery=False), "cpu")
+    got = {}
+    for backend in ("fused", "limb"):
+        cops = C.curve_ops_for(TH.TOY_G1, backend)
+        got[backend] = M.msm(cops, sc, cops.encode_points(points, "cpu"), 5, 7,
+                             TH.TOY_G1.scalar_field.bits, True)
+        if backend == "fused":
+            assert calls == {"chain": 3, "double": 0}
+    _assert_points_equal(got["fused"], [F.to_numpy(c) for c in got["limb"]])
+    assert _TOY.decode_points(got["fused"]) == [JM.msm_host_oracle(JH.TOY_G1, scalars, points)]
+
+
 def test_toy_fold_path_runs_the_fold_and_combine_kernels(monkeypatch):
     """The fold path reaches the fused backend's fold (4 calls: two levels
     of trailing partials, two of the weighted sum) and combine (1 call)
@@ -146,17 +184,18 @@ def test_toy_fold_path_runs_bucket_column_and_merge_once(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["fused", "rns_fused", "rns_hybrid"])
 def test_column_stream_path_only_on_rns_backends(backend, monkeypatch):
-    """Dispatch by backend, not a fallback: the fused and rns_hybrid
-    backends' buckets come from their bucket columns (`_column_run_ends`)
-    and never from the column stream (`_column_stream`), which rns_fused
-    keeps; all three give the same buckets."""
-    calls = {"_column_run_ends": 0, "_column_stream": 0}
-    for name in calls:
-        def counted(*args, _fn=getattr(M, name), _name=name):
-            calls[_name] += 1
-            return _fn(*args)
+    """Every kernel backend's buckets come from its bucket column
+    (`_column_run_ends`, one call): the stream path (`_column_stream`) and
+    the backends' stream columns (`run_columns`) are gone; all three give
+    the same buckets."""
+    assert not hasattr(M, "_column_stream")
+    calls = {"_column_run_ends": 0}
 
-        monkeypatch.setattr(M, name, counted)
+    def counted(*args, _fn=M._column_run_ends):
+        calls["_column_run_ends"] += 1
+        return _fn(*args)
+
+    monkeypatch.setattr(M, "_column_run_ends", counted)
     rng = np.random.default_rng(62)
     curve = TH.BN254_G1
     num_windows, n, steps, nb = 2, 48, 8, 9
@@ -164,9 +203,9 @@ def test_column_stream_path_only_on_rns_backends(backend, monkeypatch):
     pts = list(_multiples("bn254_g1", n))
     pts[5] = None
     cops = C.curve_ops_for(curve, backend)
+    assert not hasattr(cops, "run_columns")
     got = M._bucket_sums(cops, digits, cops.encode_points(pts, "cpu"), nb, steps)
-    want = {"rns_fused": (0, 1)}.get(backend, (1, 0))
-    assert (calls["_column_run_ends"], calls["_column_stream"]) == want
+    assert calls == {"_column_run_ends": 1}
     flat = JacobianPoint(*(c.reshape(*c.shape[:-2], -1) for c in got))
     for w in range(num_windows):
         for b in range(nb):
@@ -335,23 +374,28 @@ def test_weighted_fold_fused_equal_to_jax_after_decode(signed, threads, monkeypa
 
 def test_run_ends_compact_matches_jax():
     """Run ends of three windows' sorted digits in the chunk-transposed
-    stream order, located for all windows at once and by the JAX function
-    window by window."""
+    stream order: the slots the bucket columns write (`_run_end_slots`, all
+    windows at once) are the run ends that the JAX function locates window
+    by window, each naming its bucket w·num_buckets + digit."""
     rng = np.random.default_rng(49)
     num_buckets = 20
     digits = rng.integers(0, num_buckets, (3, 64))
     digits[2] = 5  # one run
-    _, d_t, _, end = M._sorted_layout(torch.from_numpy(digits), 4)
+    steps, lanes = 4, 16
+    _, d_t, _, end = M._sorted_layout(torch.from_numpy(digits), steps)
+    slot = M._run_end_slots(d_t, end, num_buckets).reshape(steps, 3, lanes)
     d_flat = d_t.permute(1, 0, 2).reshape(3, -1)
     end_flat = end.permute(1, 0, 2).reshape(3, -1)
-    pos, idx = M._run_ends_compact(d_flat, end_flat, num_buckets)
     for w in range(3):
         jp, ji = JM._run_ends_compact(
             jnp.asarray(d_flat[w].numpy().astype(np.int32)), jnp.asarray(end_flat[w].numpy()),
             num_buckets,
         )
-        np.testing.assert_array_equal(pos[w].numpy(), np.asarray(jp))
-        np.testing.assert_array_equal(idx[w].numpy(), np.asarray(ji))
+        jp, ji = np.asarray(jp), np.asarray(ji)
+        want = np.full(steps * lanes, -1)  # stream order k·R + j
+        live = ji < num_buckets
+        want[jp[live]] = w * num_buckets + ji[live]
+        np.testing.assert_array_equal(slot[:, w].reshape(-1).numpy(), want)
 
 
 def test_bucket_sums_fused_bit_equal_to_jax_per_window():

@@ -1,8 +1,8 @@
 """PyTorch port: the fused curve kernels' plain versions vs the JAX package.
 
 `ops/kernels/point_kernels.py` holds the CUDA point-op, bucket-column,
-fold, combine and merge kernels and their plain versions; on CPU tensors the
-public functions take the plain versions. They are held here, bit for bit on
+fold, combine, merge and chain kernels and their plain versions; on CPU
+tensors the public functions take the plain versions. They are held here, bit for bit on
 the raw limb arrays, against the JAX package's Pallas kernels (`manta_tpu/
 ops/pallas/point_kernels.py`) in interpret mode on the TOY curve (the bucket
 column against the JAX column kernel followed by the JAX MSM's run-end
@@ -396,6 +396,74 @@ def test_combine_windows_equals_python_lines(name):
     _assert_equal(M.horner(limb, wins, c), _numpy(acc))
 
 
+@pytest.mark.parametrize("name", ["toy_g1", "bn254_g2"])
+@pytest.mark.parametrize("chain", ["horner", "weighted_reduce", "weighted_reduce_signed"])
+def test_plain_chain_equal_jax_double_add_sequence(chain, name, monkeypatch):
+    """The chain kernel's plain version, reached as the MSM reaches it
+    (`FusedCurveOps.double_add`: `msm.horner`, and `fused_double_add` as
+    `msm._double_add` calls it), against the formulas run as the JAX
+    package's MSM runs them, a double or an add at a time: on TOY G1 the
+    JAX package's fused point kernels in interpret mode; on BN254 G2
+    (neither package has a TOY G2, and the JAX formulas run eagerly over Fq2
+    take minutes) the port's limb `CurveOps`, held against the JAX
+    package's in `test_torch_curve_msm.py`. Horner's rule over 4 windows of 2 bits (acc =
+    2^c·acc + W_w) with a window at infinity, two equal windows and a window
+    equal to 2^c·acc as it meets it (the addition's doubling branch); the
+    weighted reductions' runs over 5 lanes, add(2^d·hi, lo) and add(acc,
+    2^d·top) (the doubled point second), with a lane at infinity and a lane
+    where the two operands are equal. Bit for bit, one chain call each."""
+    jcurve, tcurve = {"toy_g1": (JH.TOY_G1, TH.TOY_G1), **CURVES}[name]
+    if name == "toy_g1":
+        ops = JPK.fused_curve_ops_for(jcurve)
+        encode = ops.encode_points
+    else:
+        ops = C.curve_ops_for(tcurve, "limb")
+
+        def encode(pts):
+            return ops.encode_points(pts, "cpu")
+
+    fused = C.curve_ops_for(tcurve, "fused")
+    calls = []
+
+    def counted(*args, _fn=PK.fused_double_add):
+        calls.append(args[3])
+        return _fn(*args)
+
+    monkeypatch.setattr(PK, "fused_double_add", counted)
+    g = jcurve.generator
+    if chain == "horner":
+        c = 2
+        top = jcurve.scalar_mul(5, g)
+        # W_3 = W_2 = 5·G, W_1 at infinity, W_0 = 400·G = 2^c·acc as it meets acc
+        enc = encode([jcurve.scalar_mul(400, g), None, top, top])
+        acc = JPoint(*(a[..., 3:] for a in enc))
+        for w in (2, 1, 0):
+            for _ in range(c):
+                acc = ops.double(acc)
+            acc = ops.add(acc, JPoint(*(a[..., w : w + 1] for a in enc)))
+        got = M.horner(fused, _tensors([np.asarray(a)[..., None] for a in enc]), c)
+        _assert_equal(got, acc)
+        assert fused.decode_points(got) == [jcurve.scalar_mul(800, g)] and calls == [c]
+        return
+    d, first = (2, True) if chain == "weighted_reduce" else (3, False)
+    rng = np.random.default_rng(64)
+    ps, qs = host_points(jcurve, rng, 5, 0.0), host_points(jcurve, rng, 5, 0.0)
+    ps[1] = None  # the chain at infinity
+    qs[2] = None  # the other operand at infinity
+    qs[3] = jcurve.scalar_mul(1 << d, ps[3])  # the operands equal after the doublings
+    chain_pt = ops.double(encode(ps))  # Jacobian (Z != 1), as the reductions' inputs
+    other = ops.double(encode(qs))
+    acc = chain_pt
+    for _ in range(d):
+        acc = ops.double(acc)
+    want = ops.add(acc, other) if first else ops.add(other, acc)
+    got = M._double_add(fused, _tensors([np.asarray(a) for a in chain_pt]),
+                        _tensors([np.asarray(a)[None] for a in other]), d, first)
+    _assert_equal(got, want)
+    sums = [jcurve.add(jcurve.scalar_mul(2 << d, p), jcurve.double(q)) for p, q in zip(ps, qs)]
+    assert fused.decode_points(got) == sums and calls == [d]
+
+
 @pytest.mark.parametrize("name", ["toy_g1", "bn254_g1", "bn254_g2"])
 def test_merge_buckets_equal_dense_merge(name):
     """The merge's plain version (and the CPU path of `merge_buckets`) is
@@ -463,6 +531,18 @@ def test_wrappers_reject_bad_input():
                          JacobianPoint(*(c[..., :2] for c in meta)), keys)
     assert PK.library("bn254_g2").units == tuple(
         ("MANTA_CURVE=1", f"MANTA_KERNEL={k}") for k in range(6))
+    # the point op built for another number of threads a lane: the add object alone
+    assert PK.library("bn254_g2", 1).units == (
+        ("MANTA_CURVE=1", "MANTA_KERNEL=0", "MANTA_POINT_GROUP=1"),)
+    assert PK.library("bn254_g2", 1).path() != PK.library("bn254_g2", 4).path()
+    with pytest.raises(ValueError, match="point_group"):
+        PK.library("bn254_g1", 3)
+    with pytest.raises(ValueError, match="addends"):  # addends of another lane count
+        PK.fused_double_add(TH.BN254_G1, p, JacobianPoint(*(c[None] for c in two)), 3)
+    with pytest.raises(ValueError, match="addends"):  # no doublings below zero
+        PK.fused_double_add(TH.BN254_G1, p, JacobianPoint(*(c[None] for c in p)), -1)
+    with pytest.raises(ValueError, match="different devices"):
+        PK.fused_double_add(TH.BN254_G1, p, JacobianPoint(*(c[None] for c in meta)), 3)
 
 
 def test_library_digest_covers_sources_and_headers(tmp_path, monkeypatch):

@@ -212,12 +212,12 @@ def test_rns_msm_equals_host(backend, name, n, steps):
 @pytest.mark.parametrize("backend", ["rns_fused", "rns_hybrid"])
 def test_rns_msm_runs_bucket_column_and_combine_not_single_lane_doubles(backend, monkeypatch):
     """The RNS MSM's kernel calls, read by wrapping the kernel wrappers the
-    backends call: rns_hybrid accumulates through the hybrid bucket column
-    (no column stream), rns_fused through the column stream; both run
-    Horner's rule and the two weighted reductions' doubling runs as three
-    combine calls, and no single-lane doubling."""
+    backends call: rns_hybrid accumulates through the hybrid bucket column,
+    rns_fused through the bucket column of RNS points (neither writes a
+    column stream); both run Horner's rule and the two weighted reductions'
+    doubling runs as three combine calls, and no single-lane doubling."""
     names = ("rns_double", "rns_double_add", "hybrid_accumulate_buckets",
-             "rns_accumulate_columns")
+             "rns_accumulate_buckets")
     calls = dict.fromkeys(names, 0)
     for name in names:
         def counted(*args, _fn=getattr(RK, name), _name=name):
@@ -228,7 +228,7 @@ def test_rns_msm_runs_bucket_column_and_combine_not_single_lane_doubles(backend,
     _msm_case("bn254_g1", backend, 256, 2)
     hybrid = backend == "rns_hybrid"
     assert calls == {"rns_double": 0, "rns_double_add": 3, "hybrid_accumulate_buckets": int(hybrid),
-                     "rns_accumulate_columns": int(not hybrid)}
+                     "rns_accumulate_buckets": int(not hybrid)}
 
 
 def test_hybrid_msm_negates_and_pads_limb_points():
@@ -267,7 +267,7 @@ def test_rns_fused_prover_equals_host_prove():
 
     fn, args = TE.entry(device="cpu")
     prover, _, _ = TE.small_prover("cpu")
-    assert prover.g1.run_columns.__func__ is RK.RnsFusedCurveOps.run_columns
+    assert prover.g1.run_bucket_columns.__func__ is RK.RnsFusedCurveOps.run_bucket_columns
     proof = prover._finish(fn(*args), 0, 0)
     matrices, assignment, _, _ = GE._poseidon_preimage_circuit("prove")
     pk, _ = JG.setup(JPR.BN254_PAIRING, GE._poseidon_preimage_circuit("setup")[0], seed=3)

@@ -1,14 +1,15 @@
 """PyTorch port: the RNS kernels' plain versions vs the JAX package.
 
-`ops/kernels/rns_kernels.py` holds the CUDA point-op, column and hybrid
-column kernels and their plain versions; on CPU tensors the public functions
-take the plain versions. They are held here bit for bit, residues compared as
-integers, against the JAX package's Pallas kernels
-(`manta_tpu/ops/pallas/rns_kernels.py`) in interpret mode: `_run_point_op`
-(G1), `rns_accumulate_columns` and `hybrid_accumulate_columns` (the
-hybrid bucket column's plain version against the JAX stream and the pick of
-its run ends), on BN254 with 128 lanes and K = 8 (the JAX `_tables` cannot be
-built for the TOY field: ROADMAP queue C). The combine's plain version is
+`ops/kernels/rns_kernels.py` holds the CUDA point-op, bucket-column (RNS
+and limb points in) and combine kernels and their plain versions; on CPU
+tensors the public functions take the plain versions. They are held here bit
+for bit, residues compared as integers, against the JAX package's Pallas
+kernels (`manta_tpu/ops/pallas/rns_kernels.py`) in interpret mode:
+`_run_point_op` (G1), `rns_accumulate_columns` and
+`hybrid_accumulate_columns` (the column streams, and both bucket columns'
+plain versions against those streams and the pick of their run ends), on
+BN254 with 128 lanes and K = 8 (the JAX `_tables` cannot be built for the
+TOY field: ROADMAP queue C). The combine's plain version is
 held against the JAX kernel's formulas run as the JAX package's MSM runs
 them, a double or add at a time. For G2 the JAX kernel's own formulas and field ops
 (`_RnsKernelCurve` over `_KernelRnsFq2Ops`) run eagerly instead of through
@@ -144,19 +145,23 @@ def test_plain_columns_equal_jax_kernel(kind):
     jfn = JRK.rns_accumulate_columns if kind == "columns" else JRK.hybrid_accumulate_columns
     want = jfn(jcurve, jnp.asarray(px), jnp.asarray(py), jnp.asarray(qinf.astype(np.int32)),
                jnp.asarray(head.astype(np.int32)))
-    tfn = RK.rns_accumulate_columns if kind == "columns" else RK.plain_hybrid_accumulate_columns
+    tfn = (RK.plain_rns_accumulate_columns if kind == "columns"
+           else RK.plain_hybrid_accumulate_columns)
     got = tfn(tcurve, *(torch.from_numpy(a) for a in (px, py, qinf, head)))
     _equal(got, want, kind)
 
 
-def test_plain_hybrid_buckets_equal_jax_stream_and_pick():
-    """The hybrid bucket column's plain version (CPU tensors) on the MSM's
-    layout: 2 windows of 64 lanes of K = 8 steps, each window's digits
-    sorted (`msm._sorted_layout`, `_run_end_slots`), window 0 with a run
-    ending on a lane's first step, one ending on a lane's last step and a
-    digit over two whole lanes, window 1 with a lane all at infinity; bit for
-    bit the JAX kernel's stream (`hybrid_accumulate_columns`), its run ends
-    picked into infinity buckets, and its last step."""
+@pytest.mark.parametrize("kind", ["hybrid", "rns"])
+def test_plain_hybrid_buckets_equal_jax_stream_and_pick(kind):
+    """A bucket column's plain version (CPU tensors) on the MSM's layout: 2
+    windows of 64 lanes of K = 8 steps, each window's digits sorted
+    (`msm._sorted_layout`, `_run_end_slots`), window 0 with a run ending on
+    a lane's first step, one ending on a lane's last step and a digit over
+    two whole lanes, window 1 with a lane all at infinity; bit for bit the
+    JAX kernel's stream, its run ends picked into infinity buckets, and its
+    last step. "hybrid": limb points, `hybrid_accumulate_buckets` against
+    `hybrid_accumulate_columns`; "rns": RNS points,
+    `rns_accumulate_buckets` against `rns_accumulate_columns`."""
     jcurve, tcurve = JH.BN254_G1, TH.BN254_G1
     rng = np.random.default_rng(17)
     windows, lanes, nb = 2, LANES // 2, 40
@@ -166,7 +171,8 @@ def test_plain_hybrid_buckets_equal_jax_stream_and_pick():
     digits[0] = np.concatenate(edge + [np.sort(rng.integers(4, nb, n - 4 * STEPS))])
     flat = host_points(jcurve, rng, windows * n)  # in each window's sorted order
     flat[n + 3 * STEPS : n + 4 * STEPS] = [None] * STEPS
-    enc = JC.curve_ops_for(jcurve, "rns_hybrid").encode_points(flat)
+    enc = JC.curve_ops_for(jcurve, "rns_hybrid" if kind == "hybrid" else "rns_fused"
+                           ).encode_points(flat)
 
     def stream(c):  # (L, W·n) -> (K, L, W·R): lane j of window w owns [jK, (j+1)K)
         c = np.asarray(c).astype(np.int32).reshape(-1, windows, lanes, STEPS)
@@ -177,10 +183,11 @@ def test_plain_hybrid_buckets_equal_jax_stream_and_pick():
     _, d_t, head, end = M._sorted_layout(torch.from_numpy(digits), STEPS)
     head = head.reshape(STEPS, -1)
     slot = M._run_end_slots(d_t, end, nb)
-    got_b, got_a = RK.hybrid_accumulate_buckets(
-        tcurve, torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(qinf), head, slot,
-        windows * nb)
-    want = [np.asarray(c) for c in JRK.hybrid_accumulate_columns(
+    tfn, jfn = ((RK.hybrid_accumulate_buckets, JRK.hybrid_accumulate_columns) if kind == "hybrid"
+                else (RK.rns_accumulate_buckets, JRK.rns_accumulate_columns))
+    got_b, got_a = tfn(tcurve, torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(qinf),
+                       head, slot, windows * nb)
+    want = [np.asarray(c) for c in jfn(
         jcurve, jnp.asarray(px), jnp.asarray(py), jnp.asarray(qinf.astype(np.int32)),
         jnp.asarray(head.numpy().astype(np.int32)))]
     _equal(got_a, [c[-1] for c in want], "last step")
@@ -284,7 +291,7 @@ def test_plain_columns_match_host(name):
             acc[j] = q if head[k, j] else jcurve.add(acc[j], q)
         want.append(list(acc))
     cops = C.curve_ops_for(tcurve, "rns_fused")
-    for backend, fn in (("rns_fused", RK.rns_accumulate_columns),
+    for backend, fn in (("rns_fused", RK.plain_rns_accumulate_columns),
                         ("rns_hybrid", RK.plain_hybrid_accumulate_columns)):
         enc = C.curve_ops_for(tcurve, backend).encode_points(flat, "cpu")
 
@@ -376,8 +383,14 @@ def test_wrappers_reject_bad_input():
         RK.rns_double_add(curve, good, JacobianPoint(*(c[None, :, :2] for c in good)), 3)
     with pytest.raises(ValueError, match="addends"):
         RK.rns_double_add(curve, good, JacobianPoint(*(c[None] for c in good)), -1)
-    with pytest.raises(ValueError, match=r"\(K, \*E, R\)"):
-        RK.rns_accumulate_columns(curve, stream, stream, mask[:1], mask)
+    for bad in range(3):  # qinf, head, slot: each (K, R)
+        masks = [mask, mask, mask.int()]
+        masks[bad] = masks[bad][:1]
+        with pytest.raises(ValueError, match=r"\(K, \*E, R\)"):
+            RK.rns_accumulate_buckets(curve, stream, stream, *masks, 8)
+    with pytest.raises(ValueError, match=r"\(K, \*E, R\)"):  # limb rows, not Kt residues
+        RK.rns_accumulate_buckets(curve, *(torch.zeros((2, 16, 4), dtype=torch.int32),) * 2,
+                                  mask, mask, mask.int(), 8)
     with pytest.raises(ValueError, match="residues"):
         RK.rns_is_zero(curve, torch.zeros((16, 4), dtype=torch.int32))
     empty = JacobianPoint(*(torch.zeros((kt, 0), dtype=torch.int32) for _ in range(3)))

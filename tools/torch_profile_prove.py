@@ -9,8 +9,9 @@ proves `assignments[0]` of `.bench_prover_pt_aux.json` once to warm up, then
 proves it again under `torch.profiler` and prints: the wall time of each
 phase, the device's busy time (sum of CUDA kernel times) and idle share of
 the proof's wall time, the launches of each field-kernel op, point kernel
-(point ops, bucket columns, folds, combines, merges) and RNS kernel (point
-ops, columns, hybrid bucket columns, combines), the device time of each kind
+(point ops, bucket columns, folds, combines, merges, chains) and RNS kernel
+(point ops, bucket columns of RNS and of limb points, combines), the device
+time of each kind
 of point kernel and of RNS kernel, and the kernels that take the most
 device time. With --out, the full `key_averages` table is written to PATH.
 Needs one CUDA device.
@@ -97,7 +98,7 @@ def main() -> int:
             if "manta::Base<" not in key and "manta::Ext<" not in key:
                 continue
             for kind in ("point_kernel", "bucket_column_kernel", "fold_kernel", "combine_kernel",
-                         "merge_kernel"):
+                         "merge_kernel", "chain_kernel"):
                 if kind in key:
                     ms, n = kinds.get(kind, (0.0, 0))
                     kinds[kind] = (ms + t / 1e3, n + count)
@@ -108,7 +109,7 @@ def main() -> int:
         for t, count, key in rows:
             if "manta::" in key:
                 continue
-            for kind in ("hybrid_bucket_kernel", "combine_kernel", "column_kernel",
+            for kind in ("hybrid_bucket_kernel", "rns_bucket_kernel", "combine_kernel",
                          "point_kernel", "zero_kernel"):
                 if f"::{kind}" in key:
                     ms, n = rns.get(kind, (0.0, 0))
